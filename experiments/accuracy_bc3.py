@@ -52,8 +52,7 @@ def run(frames: int = 131072, epochs: int = 24, lift: int = 256,
     code = ldpc_tpu.create_qc_code(base, lift=lift, max_iterations=10)
     qc = build_qc_graph(base, lift)
     # evaluation decodes through the whole-decode fused kernel: each spec
-    # is a compact Mosaic program (~2 min compile) instead of the giant
-    # unrolled XLA graph that stalls the remote compile service
+    # is one compact kernel instead of a giant unrolled XLA graph
     perf = dict(fused=True, batch_tile=64, dtype=jnp.bfloat16)
 
     def mk(kind, qparams, **kw):
@@ -122,7 +121,7 @@ def run(frames: int = 131072, epochs: int = 24, lift: int = 256,
                                           max_iterations=10,
                                           qc_options=perf),
         "RCQ-bc3-bv8": mk("rcq", qparams),
-        # uniform (gamma=1) internal bv quantizer: the TPU-preferred form
+        # uniform (gamma=1) internal bv quantizer: the closed form with no transcendentals
         # (no transcendentals) — quantify its FER delta at scale
         "RCQ-bc3-bv8uni": mk("rcq", qparams,
                              v2c_quantizer_params=tuple(

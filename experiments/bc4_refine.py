@@ -15,7 +15,7 @@ T/schedule. Resolves VERDICT r3 item 4: either bc4 >= bc3 at equal T,
 or a DE-backed explanation that the inversion is inherent.
 
     python experiments/bc4_refine.py --phase design   # CPU
-    python experiments/bc4_refine.py --phase deep     # TPU (one process)
+    python experiments/bc4_refine.py --phase deep     # GPU (one process)
     python experiments/bc4_refine.py --phase report
 """
 

@@ -16,7 +16,7 @@ affordable:
   38% at 6.4 dB, 4.7% at 6.6 dB for T1=3; T1=2 leaves >90% unconverged
   and constantly overflows into the exact two-pass fallback — correct
   but slower);
-- uniform (gamma=1) bv=8 internal quantizer (the TPU-preferred form;
+- uniform (gamma=1) bv=8 internal quantizer (the closed form with no transcendentals;
   +0.001 dB vs the power-law ladder, accuracy_bc3 results);
 - resumable per-SNR checkpoints (JSON; rerun the script to continue).
 

@@ -108,7 +108,7 @@ def main(out="images/design_loop_fer.png"):
             sp.set_color(INK2)
         ax.tick_params(colors=INK2, labelsize=8)
 
-    fig.suptitle("The \u00a7VI design loop, measured on TPU v5e "
+    fig.suptitle("The \u00a7VI design loop "
                  "(100-error or frame-capped Monte-Carlo points)", color=INK, fontsize=11)
     fig.tight_layout(rect=(0, 0, 1, 0.95))
     os.makedirs("images", exist_ok=True)

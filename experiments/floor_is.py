@@ -66,7 +66,7 @@ def main(samples=2 ** 15, exemplars=3, shift=1.6,
         code = ldpc_tpu.create_qc_code(B, lift=L, max_iterations=T)
         qc = build_qc_graph(B, L)
         fused = None
-        if jax.default_backend() == "tpu":
+        if jax.default_backend() == "gpu":
             fused = dict(fused=True, batch_tile=None, dtype=jnp.bfloat16)
         dec = ldpc_tpu.make_decoder(
             code, kind="rcq", bc=4, bv=8, quantizer_params=QP,

@@ -7,11 +7,10 @@ protograph DE localized the pathology to the FINITE graph, not ensemble
 quantization. The two candidate fixes this experiment separates
 (experiments/pbrl_lift_floor.py covers the third, a bigger lift):
 
-- **bc=5**: one more C2V magnitude bit. Fused-kernel bc=5 used to be
-  unbuildable (the 15-compare unrolled staircase sent the remote Mosaic
-  compile pathological, >35 min); the ``closed_qdq`` kernel option
+- **bc=5**: one more C2V magnitude bit. The unrolled staircase is 15
+  compare+add pairs per message; the ``closed_qdq`` kernel option
   (decode/pallas_fused.py ``_qdq_mode``) computes the same quantizer
-  index in O(1) closed form, making this arm affordable.
+  index in O(1) closed form.
 - **T=20**: real PBRL practice runs long schedules (T up to 50); §16 ran
   layered T=10.
 

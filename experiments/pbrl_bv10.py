@@ -5,7 +5,7 @@ PBRL graph.
 slope and exonerated near-zero resolution as implemented by POWER
 ladders (they regress 7x — the uniform ladder's coarse first step is a
 beneficial dead-zone). The remaining suspect is the uniform step SIZE
-at reach ~300-400: bv=8 gives steps of 1.4-3.1. On TPU the uniform qdq
+at reach ~300-400: bv=8 gives steps of 1.4-3.1. The uniform qdq
 is closed-form (round+clip — `ldpc_tpu.quantizer.uniform_qdq`), so its
 cost is bit-width independent: bv=10/12 are FREE here, unlike on the
 paper's FPGA where bv sets datapath width. Arms hold the refined CN

@@ -12,12 +12,12 @@ the framework's full design loop to that target:
    PRECODED protograph (punctured col in the DE) at the operating SNR,
    via ``design_dynamic_quantizers`` (paper §VI dynamic rule) — the
    hand ladder was designed for a graph whose threshold is 2 dB worse.
-2. **train** (TPU): W-OMS-RCQ sharing type 2 (deg(c) beta, deg(v)
+2. **train** (GPU): W-OMS-RCQ sharing type 2 (deg(c) beta, deg(v)
    alpha), bc=4, layered T=10, trained with punctured channel LLRs
    (``TrainingConfig.punctured_positions``) over the operating range.
-3. **dev** (TPU): dev-FER of {rcq-hand, rcq-dde, wrcq-hand, wrcq-dde}
+3. **dev** (GPU): dev-FER of {rcq-hand, rcq-dde, wrcq-hand, wrcq-dde}
    against the oms6 anchor at 2.0/2.4 dB.
-4. **deep** (TPU, ``--deep``): 100-error/20M-frame curve of the best
+4. **deep** (GPU, ``--deep``): 100-error/20M-frame curve of the best
    arm vs the anchors down to the 1e-6..1e-7 regime.
 
 Reference baseline being beaten: the paper's Fig. 11 / §VII-C numbers
@@ -111,7 +111,7 @@ def _mk_setup():
 
 def train_arms(epochs: int = 30, verbose: bool = True,
                tags=("hand", "dde", "ref3")):
-    """TPU phase: train W-OMS-RCQ on each available ladder."""
+    """GPU phase: train W-OMS-RCQ on each available ladder."""
     from ldpc_tpu.train import PosteriorJointTrainer, TrainingConfig
     from ldpc_tpu.utils.checkpoint import save_checkpoint
 

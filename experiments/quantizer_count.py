@@ -23,7 +23,7 @@ honest post-§33 semantics):
   (the experiments/floor_is.py harness).
 
     python experiments/quantizer_count.py --phase design   # CPU
-    python experiments/quantizer_count.py --phase deep     # TPU
+    python experiments/quantizer_count.py --phase deep     # GPU
 
 PBRL arms (--phase design13 / deep13): the bench QC code turns out NOT
 to exercise the rule — protograph DE shows both pair counts converge to
@@ -182,7 +182,7 @@ def _mk13(arm):
 
 def deep13(arms=("p2", "p3"), snr_lo=1.4, snr_hi=3.6, snr_step=0.2,
            errors=100, frames=5 * 10 ** 7, verbose=True):
-    """TPU: deep FER of the 2-pair vs 3-pair designed arms on the
+    """GPU: deep FER of the 2-pair vs 3-pair designed arms on the
     precoded PBRL rate-1/3 code (the §VII-B floor-flip regime)."""
     from ldpc_tpu.sim import SimulationConfig, simulate_single_snr
 

@@ -6,7 +6,7 @@ This re-measures the deciding SNRs for all three arms at 500 errors or
 2.5e8 frames (±4.5% FER), fresh seed, results kept SEPARATE from the
 scan checkpoints (same harness, same graph).
 
-    python experiments/tighten89.py      # TPU, one process
+    python experiments/tighten89.py      # GPU, one process
 """
 from __future__ import annotations
 

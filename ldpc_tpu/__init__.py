@@ -1,4 +1,4 @@
-"""ldpc_tpu — TPU-native neural LDPC decoding framework.
+"""ldpc_tpu — neural LDPC decoding framework on JAX accelerators.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 PyTorch implementation of "LDPC Decoding with Degree-Specific Neural Message

@@ -1,4 +1,4 @@
-"""LDPC code representation, TPU-first.
+"""LDPC code representation for batched accelerator decoding.
 
 Capability parity with the reference's ``LDPCCode`` (reference:
 ``ldpc_decoder.py:26-54``) — (n, k, H, max_iterations), rate, per-node degree
@@ -48,7 +48,7 @@ class LDPCCode:
 
     Mirrors the reference ``LDPCCode`` dataclass (``ldpc_decoder.py:26-54``)
     field-for-field so user code ports directly; adds a cached sparse edge
-    list (the thing the TPU decoders actually consume).
+    list (the thing the batched decoders actually consume).
     """
 
     n: int
@@ -719,7 +719,7 @@ def create_pbrl_qc_protograph(
     """QC-lifted PBRL protograph (paper §VII-C family, k=1032).
 
     Real PBRL codes are protograph codes lifted by circulants — which is
-    what makes them implementable — so on TPU they belong on the QC roll
+    what makes them implementable — so they belong on the QC roll
     engine / fused whole-decode kernel, not the gather path.
     :func:`create_pbrl_like_code` builds the same structure flat (for
     exercising the general/bucketed engines); this builder emits the

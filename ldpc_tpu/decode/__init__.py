@@ -24,5 +24,4 @@ from ldpc_tpu.decode.qc_engine import (
     qc_decode_batch,
     qc_decode_batch_layered,
 )
-from ldpc_tpu.decode.pallas_qc import qc_pallas_decode_batch
 from ldpc_tpu.decode.early_exit import make_two_checkpoint_decoder

@@ -15,7 +15,7 @@ reshapes — for free — into ``[nodes_d, d, B]``, so the CN min-tree and
 the VN column sum are pure dense reductions with no slot tables, no
 masks, no pad lanes. The only per-iteration data movement is the two
 ``[E, B]`` row permutations between the orders (lane-major contiguous
-rows, the TPU-friendly gather shape), versus the general engine's
+rows, the contiguous gather shape), versus the general engine's
 ``m*max_dc + E + n*max_dv + 2E`` gathered rows.
 
 Semantics are IDENTICAL to ``engine.decode_batch`` — same CN

@@ -2,7 +2,7 @@
 decoder as a public API.
 
 The whole-decode Pallas kernels check the syndrome once, after the final
-iteration — that is what makes them fast, but it forfeits the classic
+iteration — that keeps them one kernel, but it forfeits the classic
 LDPC early exit (most frames at operating SNR converge in 1-3
 iterations; reference contract ``ldpc_decoder.py:79-153`` checks every
 iteration). This module restores early termination WITHOUT giving up the
@@ -12,16 +12,18 @@ kernel: a **{T1, T} two-checkpoint decoder**.
    frames whose syndrome passes there are done (first-convergence
    freezing makes their output identical to a full-depth decode);
 2. the (few) survivors are compacted into a fixed ``survivor_budget``-row
-   batch by a cumsum-ranked one-hot matmul (MXU-friendly; the
-   nonzero+gather formulation does not compile on this toolchain —
-   docs/PERFORMANCE.md) and re-decoded at full depth;
+   batch by a cumsum-ranked one-hot matmul and re-decoded at full depth;
 3. outputs are scattered back with the transposed one-hot.
+
+The one-hot products run at ``Precision.HIGHEST``: a float32 matmul may
+otherwise run in TF32 on the GPU, and the survivors would be re-decoded
+on LLRs rounded to a 10-bit mantissa. One-hot selection is exact at full
+precision in any float dtype.
 
 This is the same construction the Monte-Carlo simulator uses internally
 (``sim/montecarlo.py::_make_compacting_wave_fn``), packaged to return the
 full merged :class:`DecodeResult` so serving paths get the ~T/t1
-arithmetic saving too. At operating SNR it multiplies decode throughput
-~2.5x (measured, docs/PERFORMANCE.md "Early-termination decode").
+arithmetic saving too.
 
 Budget overflow: with more than ``survivor_budget`` unconverged frames
 (operating far below the design SNR), out-of-budget frames keep their
@@ -39,7 +41,13 @@ import jax.numpy as jnp
 
 from ldpc_tpu.decode.engine import DecodeResult
 
-__all__ = ["make_two_checkpoint_decoder"]
+__all__ = ["make_two_checkpoint_decoder", "onehot_select"]
+
+
+def onehot_select(P, x):
+    """``P @ x`` for a one-hot selection matrix, exact in any float dtype
+    (full precision: no TF32 rounding of float32 operands)."""
+    return jnp.matmul(P, x, precision=jax.lax.Precision.HIGHEST)
 
 
 def make_two_checkpoint_decoder(decoder, *, t1: int, survivor_budget: int):
@@ -78,8 +86,8 @@ def make_two_checkpoint_decoder(decoder, *, t1: int, survivor_budget: int):
     # the fused kernels cast their llr input to the kernel dtype anyway
     # (pallas_fused: ``llr.astype(dtype)``), so running the one-hot
     # gather/scatter matmuls in that dtype changes nothing numerically —
-    # one-hot selection is exact in any float — and halves the MXU time
-    # of the two [S, B] x [B, n] products (measured ~6 ms at S=1024)
+    # one-hot selection is exact in any float — and halves the bytes of
+    # the two [S, B] x [B, n] products
     mm_dtype = opts.get("dtype") if opts.get("fused") else None
 
     @jax.jit
@@ -95,19 +103,20 @@ def make_two_checkpoint_decoder(decoder, *, t1: int, survivor_budget: int):
         # P[r, i] = 1 iff frame i is the r-th unconverged frame (r < S)
         P = ((rank[None, :] == jnp.arange(S)[:, None]) & unconv[None, :]
              ).astype(mm_dtype or llr.dtype)
-        out2 = full(P @ llr.astype(mm_dtype or llr.dtype), w)
+        out2 = full(onehot_select(P, llr.astype(mm_dtype or llr.dtype)), w)
 
-        scat_succ = (P.T @ out2.success.astype(P.dtype)) > 0.5
+        scat_succ = onehot_select(P.T, out2.success.astype(P.dtype)) > 0.5
         if out1.posterior is None:
             # lean fused epilogue: no [B, n] posterior exists on either
             # stage — merge the int8 bits directly (same scatter algebra)
-            scat_bits = (P.T @ out2.bits.astype(P.dtype)) > 0.5
+            scat_bits = onehot_select(P.T, out2.bits.astype(P.dtype)) > 0.5
             bits = jnp.where(inbud[:, None], scat_bits,
                              out1.bits.astype(bool)).astype(jnp.int8)
             post = None
         else:
-            scat_post = (P.T @ out2.posterior.astype(P.dtype)
-                         ).astype(out1.posterior.dtype)
+            scat_post = onehot_select(
+                P.T, out2.posterior.astype(P.dtype)).astype(
+                    out1.posterior.dtype)
             post = jnp.where(inbud[:, None], scat_post, out1.posterior)
             bits = (post < 0).astype(jnp.int32)
         success = jnp.where(inbud, scat_succ, conv)

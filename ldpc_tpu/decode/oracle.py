@@ -1,4 +1,4 @@
-"""Slow, loopy numpy oracle decoder for testing the TPU engine.
+"""Slow, loopy numpy oracle decoder for testing the batched engines.
 
 Implements the behavioral contract of SURVEY.md §2b with straightforward
 per-node Python loops over a dense H — deliberately written in a *different*

@@ -1,39 +1,38 @@
-"""Whole-decode VMEM-resident Pallas kernel for QC codes.
+"""Whole-decode Pallas kernels for QC codes, compiled through Triton.
 
-The per-row/per-column kernels in ``pallas_qc.py`` cut launch count ~30x
-but still round-trip the message state through HBM between every launch —
-and profiling showed the XLA QC engine's decode time is dominated by
-exactly that state movement (the v2c state for the bench code at B=8192
-is ~775 MB in bf16; every CN/VN fusion re-streams it). This kernel keeps
-the ENTIRE message state resident in VMEM for the full decode:
+The XLA engines (``qc_engine``) stream the whole message state through
+device memory on every layer of every iteration: at B=32768 on the bench
+code (5x37 base, lift 256) that is ~3.1 GB of bf16 c2v state per
+iteration, plus the column sums. These kernels decode one frame at a
+time per grid program and keep that frame's state in a per-program
+scratch for all ``T`` iterations; only the LLRs come in and the
+posterior (or int8 bits) and a success flag go out.
 
-- grid = one step per batch tile of ``batch_tile`` codewords;
-- per step: the tile's channel LLRs stream in (double-buffered by the
-  BlockSpec machinery), the c2v/v2c state lives in a single
-  ``[NB, batch_tile, lift]`` VMEM scratch for all ``T`` iterations, and
-  only the final posterior streams out. HBM traffic collapses from
-  O(state * iterations) to O(llr + posterior).
+- grid = ``ceil(B / batch_tile)`` programs. Program ``g`` decodes frames
+  ``g*batch_tile ...`` one after another. Programs run in parallel in any
+  order; nothing carries from one to another.
+- The scratch is an extra, discarded output holding one frame's state
+  per program, reused for every frame of the program. One bench frame is
+  113,664 B in bf16 (layered: 185x256 c2v + 37x256 column sums), so
+  :func:`auto_batch_tile` sizes the grid to keep all programs' scratch
+  within an L2 budget.
+- A base row (a layer) is processed as ``[Dp, Lc]`` tiles: the row's
+  blocks on the first axis, padded to a power of two and masked, and
+  ``Lc`` lanes of the lift on the second. Circulant shifts are indexed
+  loads and stores (``ref[col*L + (lane + s) % L]``); a lift that is not
+  a power of two is padded to the next one with masked lanes.
+- ``debug_barrier`` separates dependent phases (CN -> VN, layer ->
+  layer), because the threads of a program exchange state through the
+  scratch. Interpret mode runs the body in program order and has no
+  barrier lowering, so the barrier is emitted only when compiling.
 
-Layout: blocks are stored ``[batch_tile, lift]`` — batch on sublanes,
-lift on LANES — so circulant shifts are lane rolls and a 64-codeword tile
-still fills all 128 lanes when lift is a multiple of 128 (the natural QC
-lifts: 256 for the paper's (9472, 8192) family, 360 for DVB-S2).
-
-The state buffer is check-aligned and updated in place: the CN update
-(running min1/min2/first-argmin tree, negative-count sign parity, variant
-transform) reads and writes it roll-free row by row; the VN update
-re-aligns per column with two lane rolls per block. Same message
-arithmetic, in the same order, as ``qc_engine.cn_and_vn_row_batched`` /
-``cn_and_vn`` — bit-exact in float32 (``tests/test_pallas_fused.py``).
-
-Semantics: ``qc_decode_batch(..., check_every=max_iterations)`` — the
-syndrome is evaluated once after the final iteration (by a cheap XLA
-epilogue on the kernel's posterior output), so ``iterations`` is ``T``
-for every frame and ``success`` is the final syndrome. That is the
-configuration the headline bench and the simulator's compaction stage
-use; finer check granularity stays on the XLA engine. Inference-only
-(training uses the differentiable XLA engines). Reference behavioral
-contract: SURVEY.md §2b (``ldpc_decoder.py:79-153``).
+Semantics: flooding == ``qc_decode_batch(..., check_every=T)``; layered
+== the iteration-``T`` posterior of ``qc_decode_batch_layered``. The
+syndrome is checked once, after the final iteration, inside the kernel,
+on the stored (dtype-rounded) posterior; ``iterations`` is ``T`` for
+every frame. Arithmetic follows the XLA engines op for op, with the same
+storage-dtype rounding (tests/test_pallas_fused.py). Inference-only:
+training uses the differentiable XLA engines.
 """
 
 from __future__ import annotations
@@ -44,75 +43,52 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from ldpc_tpu.decode.engine import DecodeResult, VariantSpec
 from ldpc_tpu.decode.qc_engine import QCGraph
 from ldpc_tpu.quantizer import QDQ_SIGN_TINY, power_qdq, uniform_qdq
 
 __all__ = ["qc_fused_decode_batch", "qc_fused_decode_batch_layered",
-           "max_batch_tile"]
+           "auto_batch_tile", "state_bytes"]
 
-# v5e scoped VMEM is 16 MB/core. The kernel's footprint is the message
-# state scratch + the double-buffered llr/posterior IO blocks, plus
-# Mosaic's stack (min-tree f32 temporaries, roll concat buffers). The
-# stack overhead depends on lane alignment: with lift % 128 == 0 the
-# rolls stay register-resident and the bench graph (state+io 12.1 MB at
-# batch_tile=64) compiles within the 16 MB budget (overhead <= ~1.3x);
-# with an unaligned lift the compiler materializes padded intermediates —
-# the DVB-S2 lift-360 graph measured 21.42 MB scoped at batch_tile=64
-# (state+io 15.7 MB) and still 16.33 MB at batch_tile=40 (9.8 MB), so the
-# unaligned factor is calibrated conservatively at 1.95.
-_VMEM_LIMIT = 16 * 2 ** 20
+# Scratch the whole grid may keep resident: H100 has 50 MB of L2, part
+# of which the streaming LLR reads and output writes need.
+_L2_BUDGET = 32 * 2 ** 20
+# Elements of one [Dp, Lc] layer tile; with 4 warps that is 32 values
+# per thread for each live tile, which keeps the CN update in registers.
+_TILE_ELEMS = 4096
+_NUM_WARPS = 4
+_INF = float("inf")
 
 
-def _fused_vmem_bytes(qc: QCGraph, bt: int, dtype, layered: bool) -> int:
-    lanes = -(-qc.lift // 128) * 128  # lane dimension pads to 128
-    item = jnp.dtype(dtype).itemsize
-    state = (qc.num_blocks + (qc.nb if layered else 0)) * bt * lanes * item
-    io = 4 * qc.nb * bt * lanes * item  # llr in + post out, double-buffered
-    overhead = 1.31 if qc.lift % 128 == 0 else 1.95
-    return int(overhead * (state + io))
+def _pow2(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
 
 
-def max_batch_tile(qc: QCGraph, *, layered: bool = True,
-                   dtype=jnp.bfloat16, batch: int | None = None) -> int:
-    """Largest ``batch_tile`` (multiple of 8, <=1024) whose whole-decode
-    kernel fits v5e scoped VMEM; if ``batch`` is given, also a divisor of
-    it. Pass ``batch_tile=None`` to the decode functions to apply this
-    automatically (lift-360 codes need 32, the bench lift-256 graph 64)."""
-    best = 8
-    for cand in range(8, 1025, 8):
-        if _fused_vmem_bytes(qc, cand, dtype, layered) > _VMEM_LIMIT:
-            break
-        if batch is None or batch % cand == 0:
-            best = cand
-    return best
+def state_bytes(qc: QCGraph, dtype=jnp.bfloat16, layered: bool = True) -> int:
+    """Per-frame scratch: c2v (or v2c) of every block, plus the column
+    sums for the layered schedule."""
+    words = qc.num_blocks * qc.lift + (qc.n if layered else 0)
+    return words * jnp.dtype(dtype).itemsize
 
 
-def _roll_lanes(x: jnp.ndarray, s: int) -> jnp.ndarray:
-    """``jnp.roll(x, s, axis=-1)`` with a static shift: two contiguous
-    lane slices + concat (the QC circulant permutation in [bt, L] layout)."""
-    L = x.shape[-1]
-    s = s % L
-    if s == 0:
-        return x
-    return jnp.concatenate([x[..., L - s:], x[..., :L - s]], axis=-1)
+def auto_batch_tile(qc: QCGraph, batch: int, *, dtype=jnp.bfloat16,
+                    layered: bool = True) -> int:
+    """Frames per program such that the grid's scratch fits the L2
+    budget; a batch smaller than that budget's program count gets one
+    frame per program."""
+    programs = max(1, min(batch, _L2_BUDGET // state_bytes(qc, dtype,
+                                                           layered)))
+    return -(-batch // programs)
 
 
 def _qdq_mode(qparams, levels: int, closed: bool = False) -> str:
     """Mirror ``engine._make_qdq``'s static routing: 'uniform' (gamma==1
-    closed form, no transcendentals), 'power', or 'staircase'.
-
-    ``closed=True`` (the ``closed_qdq`` kernel option) forces the
-    closed-form path for SMALL LUTs too, whenever (C, gamma) params are
-    known. The exact unrolled staircase is ``levels-1`` compare+add pairs
-    per qdq call, replicated across every block of every unrolled
-    iteration — at bc>=5 (16 levels) Mosaic's compile time on the
-    remote toolchain goes pathological (>35 min observed); the closed
-    form is O(1) ops per call regardless of bc. Reconstruction matches
-    the LUT scan's index exactly (power_qdq's boundary-correction
-    selects) with <=1 ulp value rounding vs the float64-derived LUT."""
+    closed form), 'power', or the exact 'staircase'. ``closed=True``
+    forces the closed form for small LUTs too whenever (C, gamma) are
+    known: O(1) ops per message instead of ``levels-1`` compare+add
+    pairs, with the same quantizer index as the LUT scan."""
     if qparams is not None and (closed or levels > 16):
         if np.all(np.asarray(qparams)[:, 1] == 1.0):
             return "uniform"
@@ -121,237 +97,375 @@ def _qdq_mode(qparams, levels: int, closed: bool = False) -> str:
 
 
 def _kernel_qdq(x, t, thr_ref, qp_ref, levels: int, mode: str):
-    """This iteration's quantize-dequantize, mirroring ``engine._make_qdq``:
-    closed-form power law for big LUTs, exact staircase for small ones.
-    ``t`` is the (traced) iteration index; threshold/param reads are SMEM
-    scalars.
-
-    Math runs in float32: widening bf16 input is value-exact, and Mosaic
-    on v5e rejects bf16 vector compares ("Target does not support this
-    comparison") that the power/staircase forms would otherwise emit."""
-    x = x.astype(jnp.float32)
+    """Iteration ``t``'s quantize-dequantize (``engine._make_qdq``): the
+    threshold and (C, gamma) tables are flat ``[T * levels]`` and
+    ``[T * 2]`` refs read as scalars."""
     if mode == "uniform":
-        return uniform_qdq(x, qp_ref[t, 0], levels)
+        return uniform_qdq(x, qp_ref[t * 2], levels)
     if mode == "power":
-        return power_qdq(x, qp_ref[t, 0], qp_ref[t, 1], levels)
+        return power_qdq(x, qp_ref[t * 2], qp_ref[t * 2 + 1], levels)
     mag = jnp.abs(x)
     snapped = jnp.zeros_like(mag)
     for j in range(1, levels):
-        step = thr_ref[t, j] - thr_ref[t, j - 1]
-        snapped = snapped + jnp.where(mag >= thr_ref[t, j], step, 0.0)
-    # sign-preserving dead-zone floor (quantizer.QDQ_SIGN_TINY semantics)
+        tj = thr_ref[t * levels + j]
+        step = tj - thr_ref[t * levels + j - 1]
+        snapped = snapped + jnp.where(mag >= tj, step, 0.0)
     snapped = jnp.maximum(snapped, QDQ_SIGN_TINY)
     return jnp.where(x < 0, -snapped, snapped)
 
 
-def _accessors(natural: bool, L: int):
-    """Read/write helpers over the llr/posterior refs for the two block
-    layouts. Block layout indexes a [nb, bt, L] ref by base column;
-    natural layout slices a [bt, n] ref at lane offset j*L (requires
-    L % 128 == 0 so every slice is lane-tile-aligned — the case for the
-    paper's lift-256 family; lift-360 codes stay on block layout)."""
-    if natural:
-        def rd(ref, j):
-            return ref[:, j * L:(j + 1) * L]
+def _cn_transform(x, valid, deg, spec: VariantSpec, bb, ab, qdq):
+    """Check-node update of one ``[Dp, Lc]`` tile of check-aligned v2c
+    (blocks on axis 0): min1/min2/first-argmin, leave-one-out sign
+    parity, variant transform — ``qc_engine``'s CN, vectorized over the
+    row's blocks. Padded rows (``valid`` False) contribute nothing."""
+    dp = x.shape[0]
+    kk = jnp.arange(dp)[:, None]
+    negi = ((x < 0) & valid).astype(jnp.int32)
+    mag = jnp.where(valid, jnp.abs(x), _INF)
+    min1 = jnp.min(mag, axis=0)
+    argm = jnp.min(jnp.where(mag == min1[None, :], kk, dp), axis=0)
+    min2 = jnp.min(jnp.where(kk == argm[None, :], _INF, mag), axis=0)
+    # degree-1 checks (ldpc_decoder.py:112-115)
+    min2 = jnp.where(deg == 1, min1, min2)
+    neg_cnt = jnp.sum(negi, axis=0)
+    loo_mag = jnp.where(kk == argm[None, :], min2[None, :], min1[None, :])
+    loo_neg = (neg_cnt[None, :] - negi) & 1
+    loo_sign = 1.0 - 2.0 * loo_neg.astype(jnp.float32)
+    if spec.kind == "nms":
+        return bb * loo_sign * loo_mag
+    if spec.kind == "rcq":
+        return qdq(loo_sign * loo_mag)
+    if spec.kind == "wrcq":
+        return qdq(bb * loo_sign * loo_mag)
+    off = jnp.maximum(loo_mag - bb, 0.0)   # oms / orcq
+    if spec.alpha_in_cn:
+        off = off - ab
+    return loo_sign * off if spec.kind == "oms" else qdq(loo_sign * off)
 
-        def wr(ref, j, v):
-            ref[:, j * L:(j + 1) * L] = v
-    else:
-        def rd(ref, j):
-            return ref[j]
 
-        def wr(ref, j, v):
-            ref[j] = v
-    return rd, wr
+def _tables(qc: QCGraph):
+    """Structure tables, one flat int32 array read inside the kernel.
 
-
-def _syndrome_epilogue(post_ref, fail_ref, PAR, qc: QCGraph, bt: int, L,
-                       dtype, rd):
-    """In-kernel syndrome: parity of each base row as a product of
-    check-aligned posterior signs, on VMEM-resident tiles (replaces the
-    former XLA epilogue's HBM-resident jnp.roll XORs — ~38% of decode
-    time by profiling). Signs come from the STORED (dtype-rounded)
-    posterior so the result matches an XLA recomputation from post_ref
-    exactly. Accumulation goes through the PAR/fail_ref refs rather than
-    loop-carried values: Mosaic's scoped-VMEM stack does not recycle
-    slots across unrolled iterations of a value chain (a value-carried
-    version measured +6.7 MB and OOM'd), while ref stores end liveness
-    each step. fail > 0 on a frame lane iff some check fails."""
-    cols = [int(c) for c in qc.block_col]
-    shifts = [int(s) for s in qc.block_shift]
-    fail_ref[0] = jnp.zeros((bt, L), dtype)
-    for blocks in qc.row_blocks:
+    Rows: ``[mb, 4, dm]`` — per base row its blocks' ids, columns and
+    shifts, zero-padded to the widest row's power of two ``dm``, and the
+    row degree at ``[r, 3, 0]``. Columns (flooding VN): ``[nb, 3, dvm]``
+    — per base column its blocks' ids and shifts, and the column degree
+    at ``[j, 2, 0]``. Returns (table, dm, dvm, offset of the columns)."""
+    dm = _pow2(max(len(r) for r in qc.row_blocks))
+    dvm = max(len(c) for c in qc.col_blocks)
+    rows = np.zeros((qc.mb, 4, dm), np.int32)
+    for r, blocks in enumerate(qc.row_blocks):
         for k, b in enumerate(blocks):
-            b = int(b)
-            s = 1.0 - 2.0 * (rd(post_ref, cols[b]).astype(jnp.float32)
-                             < 0).astype(jnp.float32)
-            s = _roll_lanes(s, -shifts[b])
-            PAR[...] = s if k == 0 else PAR[...] * s
-        fail_ref[0] = jnp.maximum(
-            fail_ref[0][...],
-            (PAR[...] < 0).astype(jnp.float32).astype(dtype))
+            rows[r, :3, k] = (b, qc.block_col[b], qc.block_shift[b])
+        rows[r, 3, 0] = len(blocks)
+    cols = np.zeros((qc.nb, 3, dvm), np.int32)
+    for j, blocks in enumerate(qc.col_blocks):
+        for k, b in enumerate(blocks):
+            cols[j, :2, k] = (b, qc.block_shift[b])
+        cols[j, 2, 0] = len(blocks)
+    return (np.concatenate([rows.reshape(-1), cols.reshape(-1)]), dm, dvm,
+            rows.size)
 
 
-def _make_kernel(qc: QCGraph, spec: VariantSpec, T: int, bt: int, dtype,
-                 natural: bool = False, closed_qdq: bool = False):
-    NB = qc.num_blocks
-    L = qc.lift
-    shifts = [int(s) for s in qc.block_shift]
-    cols = [int(c) for c in qc.block_col]
-    row_blocks = [list(r) for r in qc.row_blocks]
-    col_blocks = [list(c) for c in qc.col_blocks]
-    INF = float("inf")
-    rd, wr = _accessors(natural, L)
-
-    q_mode = _qdq_mode(spec.qparams, spec.q_levels,
-                       closed_qdq or spec.closed_qdq)
+def _make_kernel(qc: QCGraph, spec: VariantSpec, T: int, bt: int, B: int,
+                 dtype, lean: bool, closed_qdq: bool, interpret: bool,
+                 layered: bool, dm: int, dvm: int, col_off: int):
+    L, Lp = qc.lift, _pow2(qc.lift)
+    lc = max(1, min(Lp, _TILE_ELEMS // dm))   # lanes per layer tile
+    nch = Lp // lc
+    n, NB = qc.n, qc.num_blocks
+    chunk = min(_pow2(n), _TILE_ELEMS)
+    closed = closed_qdq or spec.closed_qdq
+    q_mode = _qdq_mode(spec.qparams, spec.q_levels, closed)
     with_vqdq = (spec.v2c_qparams is not None or
                  spec.v2c_thresholds is not None)
-    v_mode = _qdq_mode(spec.v2c_qparams, spec.v2c_levels,
-                       closed_qdq or spec.closed_qdq)
+    v_mode = _qdq_mode(spec.v2c_qparams, spec.v2c_levels, closed)
+    state_words = NB * L
 
-    def kernel(llr_ref, beta_ref, alpha_ref, thr_ref, qp_ref, vthr_ref,
-               vqp_ref, post_ref, fail_ref, S, PAR):
-        # init: check-aligned v2c = rolled channel LLRs (SURVEY §2b step 2)
-        for b in range(NB):
-            S[b] = _roll_lanes(rd(llr_ref, cols[b]), -shifts[b])
+    def rnd(x):  # round to the storage dtype, as the XLA engines store
+        return x.astype(dtype).astype(jnp.float32)
 
-        def body(t, carry):
-            # ---- check-node update, row by row, in place ----
-            for blocks in row_blocks:
-                dc = len(blocks)
-                # pass 1: running (min1, min2, first-argmin) + sign parity
-                x0 = S[blocks[0]][...].astype(jnp.float32)
-                min1 = jnp.abs(x0)
-                min2 = jnp.full_like(min1, INF)
-                argm = jnp.zeros(min1.shape, jnp.int32)
-                neg_cnt = (x0 < 0).astype(jnp.int32)
-                for k in range(1, dc):
-                    xk = S[blocks[k]][...].astype(jnp.float32)
-                    mk = jnp.abs(xk)
-                    new_min = mk < min1
-                    min2 = jnp.where(new_min, min1, jnp.minimum(min2, mk))
-                    min1 = jnp.where(new_min, mk, min1)
-                    argm = jnp.where(new_min, k, argm)
-                    neg_cnt = neg_cnt + (xk < 0).astype(jnp.int32)
-                if dc == 1:
-                    min2 = min1  # degree-1 checks (ldpc_decoder.py:112-115)
-                # pass 2: leave-one-out + variant transform, write back
-                for k in range(dc):
-                    b = blocks[k]
-                    xk = S[b][...].astype(jnp.float32)
-                    loo_mag = jnp.where(argm == k, min2, min1)
-                    loo_neg = (neg_cnt - (xk < 0).astype(jnp.int32)) & 1
-                    loo_sign = 1.0 - 2.0 * loo_neg.astype(jnp.float32)
-                    bb = beta_ref[t, b]
-                    ab = alpha_ref[t, b]
-                    if spec.kind == "nms":
-                        out = bb * loo_sign * loo_mag
-                    elif spec.kind == "oms":
-                        off = jnp.maximum(loo_mag - bb, 0.0)
-                        if spec.alpha_in_cn:
-                            off = off - ab
-                        out = loo_sign * off
-                    elif spec.kind == "rcq":
-                        out = _kernel_qdq(loo_sign * loo_mag, t, thr_ref,
-                                          qp_ref, spec.q_levels, q_mode)
-                    elif spec.kind == "wrcq":
-                        out = _kernel_qdq(bb * loo_sign * loo_mag, t,
-                                          thr_ref, qp_ref, spec.q_levels,
-                                          q_mode)
-                    else:  # orcq: W-OMS-RCQ (paper §VII-B)
-                        off = jnp.maximum(loo_mag - bb, 0.0)
-                        if spec.alpha_in_cn:
-                            off = off - ab
-                        out = _kernel_qdq(loo_sign * off, t, thr_ref,
-                                          qp_ref, spec.q_levels, q_mode)
-                    S[b] = out.astype(dtype)
+    def barrier():
+        if not interpret:
+            plt.debug_barrier()
 
-            # ---- variable-node update, column by column, in place ----
-            # arithmetic runs in the storage dtype in the same order as
-            # qc_engine.cn_and_vn (colsum over the column's blocks in
-            # order) so the two paths agree bit-for-bit in float32
-            for j, blocks in enumerate(col_blocks):
-                ca = [_roll_lanes(S[b][...], shifts[b]) for b in blocks]
-                colsum = ca[0]
-                for k in range(1, len(blocks)):
-                    colsum = colsum + ca[k]
-                llr_j = rd(llr_ref, j)
-                for k, b in enumerate(blocks):
-                    ext = colsum - ca[k]
+    def ld(ref, idx, mask):
+        return plt.load(ref.at[idx], mask=mask, other=0).astype(jnp.float32)
+
+    def st(ref, idx, val, mask):
+        # masked lanes aim at the buffer's spare last word: in interpret
+        # mode a masked store is a read-modify-write scatter, and a
+        # padded lane aliasing a live address would race with it
+        trash = ref.shape[0] - 1
+        plt.store(ref.at[jnp.where(mask, idx, trash)], val, mask=mask)
+
+    def loop(n_steps, body, carry=0):
+        return jax.lax.fori_loop(0, n_steps, body, carry)
+
+    def kernel(llr_ref, tab_ref, beta_ref, alpha_ref, thr_ref, qp_ref,
+               vthr_ref, vqp_ref, out_ref, ok_ref, c_ref, *cs_refs):
+        g = pl.program_id(0)
+        cbase = g * state_words
+
+        def qdq(x, t):
+            return _kernel_qdq(x, t, thr_ref, qp_ref, spec.q_levels, q_mode)
+
+        def vqdq(x, t):
+            return _kernel_qdq(x, t, vthr_ref, vqp_ref, spec.v2c_levels,
+                               v_mode)
+
+        def row_tile(r, c):
+            """Row ``r``'s lane chunk ``c``: block ids, var positions
+            (check lane i reads var (i + s) % L of its column), state
+            positions, the mask, and the row degree."""
+            k = jnp.arange(dm)
+            base = r * 4 * dm
+            blk = tab_ref[base + k][:, None]
+            col = tab_ref[base + dm + k][:, None]
+            sh = tab_ref[base + 2 * dm + k][:, None]
+            deg = tab_ref[base + 3 * dm]
+            u = c * lc + jnp.arange(lc)[None, :]
+            valid = (k[:, None] < deg) & (u < L)
+            uu = jnp.minimum(u, L - 1)
+            return blk, col * L + (uu + sh) % L, blk * L + uu, valid, deg
+
+        def row_chunks(body, carry=0):
+            """``body(r, c, carry)`` over every (row, lane chunk); a
+            barrier after each row when ``layered`` (rows depend)."""
+            def per_row(r, carry):
+                carry = loop(nch, lambda c, cr: body(r, c, cr), carry)
+                if layered:
+                    barrier()
+                return carry
+            return loop(qc.mb, per_row, carry)
+
+        def flat_chunks(size, body):
+            def step(i, carry):
+                idx = i * chunk + jnp.arange(chunk)
+                body(jnp.minimum(idx, size - 1), idx < size)
+                return carry
+            loop(-(-size // chunk), step)
+
+        def store_post(lbase, idx, post, mask):
+            if lean:
+                st(out_ref, lbase + idx, (post < 0).astype(jnp.int8), mask)
+            else:
+                st(out_ref, lbase + idx, post.astype(dtype), mask)
+
+        def syndrome_ok(lbase):
+            """All checks satisfied, from the stored posterior's signs."""
+            def body(r, c, fail):
+                _, vpos, _, valid, _ = row_tile(r, c)
+                x = plt.load(out_ref.at[lbase + vpos], mask=valid, other=0)
+                neg = (x > 0) if lean else (x < 0)
+                par = jnp.sum((neg & valid).astype(jnp.int32), axis=0) & 1
+                return jnp.maximum(fail, jnp.max(par))
+            fail = loop(qc.mb, lambda r, f: loop(
+                nch, lambda c, f2: body(r, c, f2), f), jnp.int32(0))
+            return (fail == 0).astype(jnp.int32)
+
+        def decode_layered(f):
+            lbase = f * n
+            sbase = g * n
+            cs_ref, = cs_refs
+            zero = jnp.zeros((chunk,), dtype)
+            flat_chunks(state_words,
+                        lambda idx, m: st(c_ref, cbase + idx, zero, m))
+            flat_chunks(n, lambda idx, m: st(cs_ref, sbase + idx, zero, m))
+            barrier()
+
+            def iteration(t, carry):
+                def layer(r, c, carry):
+                    blk, vpos, cidx, valid, deg = row_tile(r, c)
+                    bb = beta_ref[t * NB + blk]
+                    ab = alpha_ref[t * NB + blk]
+                    llr = ld(llr_ref, lbase + vpos, valid)
+                    cs = ld(cs_ref, sbase + vpos, valid)
+                    old = ld(c_ref, cbase + cidx, valid)
+                    ext = rnd(cs - old)
                     if spec.alpha_in_cn:
-                        nv = llr_j + ext
+                        nv = rnd(llr + ext)
                     else:
-                        ab = alpha_ref[t, b]
-                        nv = llr_j + ab * ext
-                    if with_vqdq:
-                        nv = _kernel_qdq(nv, t, vthr_ref, vqp_ref,
-                                         spec.v2c_levels, v_mode)
-                    S[b] = _roll_lanes(nv.astype(dtype), -shifts[b])
+                        nv = llr + ab * ext
+                    out = _cn_transform(nv, valid, deg, spec, bb, ab,
+                                        lambda v: qdq(v, t))
+                    new = rnd(out)
+                    st(c_ref, cbase + cidx, new.astype(dtype), valid)
+                    st(cs_ref, sbase + vpos,
+                       rnd(cs + rnd(new - old)).astype(dtype), valid)
+                    return carry
+                return row_chunks(layer, carry)
 
-                # the posterior is only observed after the final iteration
-                # (check-at-the-end contract) — skip the qdq+store earlier
-                @pl.when(t == T - 1)
-                def _store_post(j=j, llr_j=llr_j, colsum=colsum):
-                    post = llr_j + colsum
-                    if with_vqdq:
-                        post = _kernel_qdq(post, t, vthr_ref, vqp_ref,
-                                           spec.v2c_levels, v_mode)
-                    wr(post_ref, j, post.astype(dtype))
+            loop(T, iteration)
+
+            def posterior(idx, m):
+                post = rnd(ld(llr_ref, lbase + idx, m) +
+                           ld(cs_ref, sbase + idx, m))
+                if with_vqdq:
+                    post = rnd(vqdq(post, T - 1))
+                store_post(lbase, idx, post, m)
+            flat_chunks(n, posterior)
+            barrier()
+            ok_ref[f] = syndrome_ok(lbase)
+
+        def decode_flooding(f):
+            lbase = f * n
+
+            def init(r, c, carry):  # v2c := channel LLRs, check-aligned
+                _, vpos, cidx, valid, _ = row_tile(r, c)
+                st(c_ref, cbase + cidx,
+                   plt.load(llr_ref.at[lbase + vpos], mask=valid, other=0),
+                   valid)
+                return carry
+            row_chunks(init)
+            barrier()
+            u = jnp.arange(Lp)
+            um = u < L
+            uu = jnp.minimum(u, L - 1)
+
+            def iteration(t, carry):
+                def cn(r, c, carry):  # CN, in place
+                    blk, _, cidx, valid, deg = row_tile(r, c)
+                    bb = beta_ref[t * NB + blk]
+                    ab = alpha_ref[t * NB + blk]
+                    x = ld(c_ref, cbase + cidx, valid)
+                    out = _cn_transform(x, valid, deg, spec, bb, ab,
+                                        lambda v: qdq(v, t))
+                    st(c_ref, cbase + cidx, out.astype(dtype), valid)
+                    return carry
+                row_chunks(cn)
+                barrier()
+
+                def vn(j, carry):  # VN, in place, blocks in column order
+                    base = col_off + j * 3 * dvm
+                    deg = tab_ref[base + 2 * dvm]
+                    llr = ld(llr_ref, lbase + j * L + uu, um)
+                    blks, idxs, cv, ms = [], [], [], []
+                    for k in range(dvm):
+                        b = tab_ref[base + k]
+                        i = cbase + b * L + (uu + L - tab_ref[base + dvm + k]) % L
+                        m = um & (k < deg)
+                        blks.append(b)
+                        idxs.append(i)
+                        ms.append(m)
+                        cv.append(ld(c_ref, i, m))
+                    colsum = cv[0]
+                    for v in cv[1:]:  # padded blocks add an exact 0
+                        colsum = rnd(colsum + v)
+                    for b, i, v, m in zip(blks, idxs, cv, ms):
+                        ext = rnd(colsum - v)
+                        if spec.alpha_in_cn:
+                            nv = rnd(llr + ext)
+                        else:
+                            nv = llr + alpha_ref[t * NB + b] * ext
+                        if with_vqdq:
+                            nv = vqdq(nv, t)
+                        st(c_ref, i, nv.astype(dtype), m)
+
+                    @pl.when(t == T - 1)
+                    def _():
+                        post = rnd(llr + colsum)
+                        if with_vqdq:
+                            post = rnd(vqdq(post, T - 1))
+                        store_post(lbase, j * L + uu, post, um)
+                    return carry
+                loop(qc.nb, vn)
+                barrier()
+                return carry
+
+            loop(T, iteration)
+            ok_ref[f] = syndrome_ok(lbase)
+
+        decode = decode_layered if layered else decode_flooding
+
+        def frame(i, carry):
+            f = g * bt + i
+
+            @pl.when(f < B)
+            def _():
+                decode(f)
             return carry
 
-        jax.lax.fori_loop(0, T, body, 0)
-        _syndrome_epilogue(post_ref, fail_ref, PAR, qc, bt, L, dtype, rd)
+        loop(bt, frame)
 
     return kernel
 
 
-def _pad_batch(llr, bt):
-    """Pad the batch up to a multiple of the tile with zero-LLR frames
-    (decoded as garbage, sliced away by ``_result_epilogue``) so callers
-    can pass ANY batch size to the fused kernels."""
-    B = llr.shape[0]
-    pad = (-B) % bt
-    if pad:
-        llr = jnp.concatenate(
-            [llr, jnp.zeros((pad, llr.shape[1]), llr.dtype)], axis=0)
-    return llr, B
+def _decode(llr, weights, *, qc, spec, max_iterations, dtype, batch_tile,
+            interpret, lean, closed_qdq, layered):
+    if not interpret and jax.default_backend() == "cpu":
+        raise RuntimeError(
+            "the fused QC kernels compile for a GPU (Pallas through "
+            "Triton); on the CPU pass interpret=True, e.g. "
+            "qc_options={'fused': True, 'interpret': True}")
+    T = max_iterations
+    B, n = llr.shape
+    if B * n >= 2 ** 31:
+        raise ValueError(f"batch of {B} frames x {n} bits exceeds int32 "
+                         "indexing; decode it in smaller waves")
+    bt = (auto_batch_tile(qc, B, dtype=dtype, layered=layered)
+          if batch_tile is None else int(batch_tile))
+    if bt < 1:
+        raise ValueError(f"batch_tile must be >= 1 or None, got {bt}")
+    G = -(-B // bt)
+    NB = qc.num_blocks
 
+    def flat(a, w):
+        return (jnp.asarray(a, jnp.float32).reshape(-1) if a is not None
+                else jnp.zeros((T * w,), jnp.float32))
 
-def _result_epilogue(post_out, fail, Bsz, n, T, lean, natural, true_B):
-    """Shared XLA epilogue over the kernel's posterior/fail outputs.
-
-    ``natural=True`` means the kernel already wrote the posterior in
-    [B, n] layout (lane-aligned lifts take this path) — no XLA transpose
-    at all; otherwise ``post_out`` is the [nb, B, L] block layout and is
-    transposed here. ``lean=False``: the full :class:`DecodeResult`
-    contract — [B, n] posterior (bf16) and int32 bits. ``lean=True``: the
-    decode-rate path — bits only, as int8 straight off the sign compare,
-    ``posterior=None``. At B=8192 on the bench code the full epilogue
-    writes ~465 MB of HBM (posterior + int32 bits) against the lean
-    path's ~78 MB; the simulator and the headline bench only ever consume
-    bits/success/iterations."""
-    ok = ~jnp.any(fail[0] > 0, axis=-1)  # in-kernel syndrome
-    iters = jnp.full((true_B,), T, jnp.int32)
-    if natural:
-        post = post_out                                   # already [B, n]
+    # per-(iteration, block) weight tables, read by flat gathers
+    if spec.beta_idx is not None:
+        beta = weights["beta"][:, jnp.asarray(spec.beta_idx)]
     else:
-        post = post_out.transpose(1, 0, 2).reshape(Bsz, n)
-    if true_B != Bsz:  # drop the zero-LLR padding frames
-        post = post[:true_B]
-        ok = ok[:true_B]
+        beta = jnp.full((T, NB), spec.fixed_beta, jnp.float32)
+    if spec.alpha_idx is not None:
+        alpha = weights["alpha"][:, jnp.asarray(spec.alpha_idx)]
+    else:
+        alpha = jnp.full((T, NB), spec.fixed_alpha, jnp.float32)
+    tab, dm, dvm, col_off = _tables(qc)
+
+    kernel = _make_kernel(qc, spec, T, bt, B, dtype, lean, closed_qdq,
+                          interpret, layered, dm, dvm, col_off)
+    out_dtype = jnp.int8 if lean else dtype
+    # every stored buffer has one spare word at its end (see ``st``)
+    out_shape = [jax.ShapeDtypeStruct((B * n + 1,), out_dtype),
+                 jax.ShapeDtypeStruct((B,), jnp.int32),
+                 jax.ShapeDtypeStruct((G * NB * qc.lift + 1,), dtype)]
+    if layered:
+        out_shape.append(jax.ShapeDtypeStruct((G * n + 1,), dtype))
+    out, ok, *_ = pl.pallas_call(
+        kernel,
+        grid=(G,),
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=_NUM_WARPS,
+                                           num_stages=1),
+        interpret=interpret,
+        name="qc_fused_layered" if layered else "qc_fused_flooding",
+    )(llr.astype(dtype).reshape(-1), jnp.asarray(tab),
+      beta.astype(jnp.float32).reshape(-1),
+      alpha.astype(jnp.float32).reshape(-1),
+      flat(spec.thresholds, max(spec.q_levels, 1)), flat(spec.qparams, 2),
+      flat(spec.v2c_thresholds, max(spec.v2c_levels, 1)),
+      flat(spec.v2c_qparams, 2))
+
+    out = out[:B * n].reshape(B, n)
+    success = ok > 0
+    iters = jnp.full((B,), T, jnp.int32)
     if lean:
-        bits = (post < 0).astype(jnp.int8)
-        return DecodeResult(bits=bits, posterior=None,
-                            iterations=iters, success=ok)
-    bits = (post < 0).astype(jnp.int32)
-    return DecodeResult(bits=bits, posterior=post, iterations=iters,
-                        success=ok)
+        return DecodeResult(bits=out, posterior=None, iterations=iters,
+                            success=success)
+    return DecodeResult(bits=(out < 0).astype(jnp.int32), posterior=out,
+                        iterations=iters, success=success)
 
 
-@partial(jax.jit, static_argnames=("qc", "spec", "max_iterations", "dtype",
-                                   "batch_tile", "interpret", "lean",
-                                   "natural", "closed_qdq"))
+_STATIC = ("qc", "spec", "max_iterations", "dtype", "batch_tile",
+           "interpret", "lean", "closed_qdq")
+
+
+@partial(jax.jit, static_argnames=_STATIC)
 def qc_fused_decode_batch(
     llr: jnp.ndarray,            # [B, n]
     weights,                     # {'beta': [T, n_beta], 'alpha': [T, n_alpha]}
@@ -360,238 +474,27 @@ def qc_fused_decode_batch(
     spec: VariantSpec,
     max_iterations: int,
     dtype=jnp.bfloat16,
-    batch_tile: int | None = 64,
+    batch_tile: int | None = None,
     interpret: bool = False,
     lean: bool = False,
-    natural: bool | None = None,
     closed_qdq: bool = False,
 ) -> DecodeResult:
-    """Flooding QC decode in ONE whole-decode Pallas kernel.
+    """Flooding QC decode in one whole-decode kernel.
 
     Contract == ``qc_decode_batch(..., check_every=max_iterations)``:
     bits/posterior from the final iteration, ``success`` = final syndrome,
-    ``iterations`` = T for every frame. ``batch_tile`` codewords are
-    decoded per grid step with the full message state VMEM-resident;
-    batches that do not divide are zero-padded up and sliced back. ``lean=True`` skips the [B, n] posterior
-    materialization and returns int8 bits (see ``_result_epilogue``).
-    ``natural=True`` (requires ``lift % 128 == 0``) streams llr/posterior in
-    their [B, n] layout — no XLA-side layout transposes at either end.
+    ``iterations`` = T for every frame. Any batch size works.
+    ``batch_tile``: frames per grid program (None: :func:`auto_batch_tile`).
+    ``lean=True`` returns int8 bits and no posterior. ``interpret=True``
+    runs the kernel on the CPU; without it the CPU is refused.
     """
-    T = max_iterations
-    true_B, n = llr.shape
-    if batch_tile is None:
-        # cap the auto tile at the (8-rounded) batch: a 8-frame call must
-        # not pad up to the max VMEM-fitting tile and decode garbage
-        batch_tile = min(max_batch_tile(qc, layered=False, dtype=dtype),
-                         -(-true_B // 8) * 8)
-    llr, true_B = _pad_batch(llr, batch_tile)
-    Bsz = llr.shape[0]
-    L = qc.lift
-    NB = qc.num_blocks
-    bt = batch_tile
-    est = _fused_vmem_bytes(qc, bt, dtype, layered=False)
-    if est > _VMEM_LIMIT:
-        raise ValueError(
-            f"estimated kernel VMEM {est / 2**20:.1f} MB for "
-            f"batch_tile={bt} exceeds the 16 MB scoped budget; use "
-            f"batch_tile<={max_batch_tile(qc, layered=False, dtype=dtype)} "
-            f"(or batch_tile=None to auto-pick)")
-
-    if natural is None:
-        # AUTO since measured on-chip (2026-08-19, experiments/
-        # lean_ab_results.json): bit-exact vs the block layout on 16384
-        # frames and ~16% faster end-to-end (575.6k vs 495.8k cw/s with
-        # the lean epilogue) — the [nb, B, L] transposes it removes were
-        # pure overhead. Falls back to the block layout when the lift
-        # does not fill the 128 lanes.
-        natural = L % 128 == 0
-    if natural and L % 128:
-        raise ValueError(f"natural layout needs lift % 128 == 0, got {L}")
-    if natural:
-        llr_in = llr.astype(dtype)          # [B, n], no layout change
-    else:
-        # [nb, B, L]: per-base-column tiles, batch on sublanes, lift lanes
-        llr_in = llr.astype(dtype).reshape(Bsz, qc.nb, L).transpose(1, 0, 2)
-
-    # per-(iteration, block) weight tables for SMEM scalar reads
-    if spec.beta_idx is not None:
-        beta_tab = weights["beta"][:, jnp.asarray(spec.beta_idx)]
-    else:
-        beta_tab = jnp.full((T, NB), spec.fixed_beta, jnp.float32)
-    if spec.alpha_idx is not None:
-        alpha_tab = weights["alpha"][:, jnp.asarray(spec.alpha_idx)]
-    else:
-        alpha_tab = jnp.full((T, NB), spec.fixed_alpha, jnp.float32)
-
-    def tab(a, w):
-        return (jnp.asarray(a, jnp.float32) if a is not None
-                else jnp.zeros((T, w), jnp.float32))
-
-    thr = tab(spec.thresholds, 1)
-    qp = tab(spec.qparams, 2)
-    vthr = tab(spec.v2c_thresholds, 1)
-    vqp = tab(spec.v2c_qparams, 2)
-
-    kernel = _make_kernel(qc, spec, T, bt, dtype, natural, closed_qdq)
-    grid = (Bsz // bt,)
-    if natural:
-        blk = pl.BlockSpec((bt, n), lambda i: (i, 0),
-                           memory_space=pltpu.VMEM)
-        post_shape = jax.ShapeDtypeStruct((Bsz, n), dtype)
-    else:
-        blk = pl.BlockSpec((qc.nb, bt, L), lambda i: (0, i, 0),
-                           memory_space=pltpu.VMEM)
-        post_shape = jax.ShapeDtypeStruct((qc.nb, Bsz, L), dtype)
-    fail_blk = pl.BlockSpec((1, bt, L), lambda i: (0, i, 0),
-                            memory_space=pltpu.VMEM)
-    smem = lambda a: pl.BlockSpec(a.shape, lambda i: (0, 0),
-                                  memory_space=pltpu.SMEM)
-    post_out, fail = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[blk, smem(beta_tab), smem(alpha_tab), smem(thr),
-                  smem(qp), smem(vthr), smem(vqp)],
-        out_specs=[blk, fail_blk],
-        out_shape=[post_shape,
-                   jax.ShapeDtypeStruct((1, Bsz, L), dtype)],
-        scratch_shapes=[pltpu.VMEM((NB, bt, L), dtype),
-                        pltpu.VMEM((bt, L), jnp.float32)],
-        interpret=interpret,
-    )(llr_in, beta_tab.astype(jnp.float32),
-      alpha_tab.astype(jnp.float32), thr, qp, vthr, vqp)
-
-    return _result_epilogue(post_out, fail, Bsz, n, T, lean, natural,
-                            true_B)
+    return _decode(llr, weights, qc=qc, spec=spec,
+                   max_iterations=max_iterations, dtype=dtype,
+                   batch_tile=batch_tile, interpret=interpret, lean=lean,
+                   closed_qdq=closed_qdq, layered=False)
 
 
-def _make_layered_kernel(qc: QCGraph, spec: VariantSpec, T: int, bt: int,
-                         dtype, natural: bool = False,
-                         closed_qdq: bool = False):
-    NB = qc.num_blocks
-    L = qc.lift
-    shifts = [int(s) for s in qc.block_shift]
-    cols = [int(c) for c in qc.block_col]
-    row_blocks = [list(r) for r in qc.row_blocks]
-    INF = float("inf")
-    rd, wr = _accessors(natural, L)
-
-    q_mode = _qdq_mode(spec.qparams, spec.q_levels,
-                       closed_qdq or spec.closed_qdq)
-    with_vqdq = (spec.v2c_qparams is not None or
-                 spec.v2c_thresholds is not None)
-    v_mode = _qdq_mode(spec.v2c_qparams, spec.v2c_levels,
-                       closed_qdq or spec.closed_qdq)
-
-    def kernel(llr_ref, beta_ref, alpha_ref, thr_ref, qp_ref, vthr_ref,
-               vqp_ref, post_ref, fail_ref, C, colsum, PAR):
-        # layered state: per-block c2v memory (VAR-aligned, like
-        # qc_engine.qc_decode_batch_layered) + per-column running sum
-        for b in range(NB):
-            C[b] = jnp.zeros((bt, L), dtype)
-        for j in range(qc.nb):
-            colsum[j] = jnp.zeros((bt, L), dtype)
-
-        def body(t, carry):
-            for blocks in row_blocks:
-                dc = len(blocks)
-
-                # pass 1: fresh check-aligned v2c per block (from the
-                # CURRENT posterior state — layered semantics) feeds the
-                # running (min1, min2, first-argmin) + sign parity. Pass 2
-                # re-needs only each block's SIGN, so pass 1 stashes it
-                # IN PLACE of the old c2v: the old c2v is subtracted from
-                # colsum here (each base-row column appears once per row,
-                # so later blocks of this row are unaffected) and C[b]
-                # holds sign_k (+-1) until pass 2 overwrites it with the
-                # new c2v. No extra VMEM, and the ~7-op ca_k recompute per
-                # block (~20% of the iteration) is gone.
-                min1 = min2 = argm = neg_cnt = None
-                for k in range(dc):
-                    b = blocks[k]
-                    j = cols[b]
-                    old = C[b][...]
-                    ext = colsum[j][...] - old
-                    if spec.alpha_in_cn:
-                        nv = rd(llr_ref, j) + ext
-                    else:
-                        ab = alpha_ref[t, b]
-                        nv = rd(llr_ref, j) + ab * ext
-                    xk = _roll_lanes(nv.astype(jnp.float32), -shifts[b])
-                    colsum[j] = ext.astype(dtype)  # old c2v removed
-                    negk = (xk < 0).astype(jnp.int32)
-                    C[b] = (1.0 - 2.0 * negk.astype(jnp.float32)
-                            ).astype(dtype)        # stash sign_k
-                    mk = jnp.abs(xk)
-                    if k == 0:
-                        min1 = mk
-                        min2 = jnp.full_like(min1, INF)
-                        argm = jnp.zeros(min1.shape, jnp.int32)
-                        neg_cnt = negk
-                    else:
-                        new_min = mk < min1
-                        min2 = jnp.where(new_min, min1,
-                                         jnp.minimum(min2, mk))
-                        min1 = jnp.where(new_min, mk, min1)
-                        argm = jnp.where(new_min, k, argm)
-                        neg_cnt = neg_cnt + negk
-                if dc == 1:
-                    min2 = min1
-                # sign parity of the whole row; leave-one-out divides by
-                # (= multiplies by) the left-out block's stashed sign
-                row_sign = 1.0 - 2.0 * (neg_cnt & 1).astype(jnp.float32)
-                for k in range(dc):
-                    b = blocks[k]
-                    loo_mag = jnp.where(argm == k, min2, min1)
-                    loo_sign = row_sign * C[b][...].astype(jnp.float32)
-                    bb = beta_ref[t, b]
-                    ab = alpha_ref[t, b]
-                    if spec.kind == "nms":
-                        out = bb * loo_sign * loo_mag
-                    elif spec.kind == "oms":
-                        off = jnp.maximum(loo_mag - bb, 0.0)
-                        if spec.alpha_in_cn:
-                            off = off - ab
-                        out = loo_sign * off
-                    elif spec.kind == "rcq":
-                        out = _kernel_qdq(loo_sign * loo_mag, t, thr_ref,
-                                          qp_ref, spec.q_levels, q_mode)
-                    elif spec.kind == "wrcq":
-                        out = _kernel_qdq(bb * loo_sign * loo_mag, t,
-                                          thr_ref, qp_ref, spec.q_levels,
-                                          q_mode)
-                    else:  # orcq: W-OMS-RCQ (paper §VII-B)
-                        off = jnp.maximum(loo_mag - bb, 0.0)
-                        if spec.alpha_in_cn:
-                            off = off - ab
-                        out = _kernel_qdq(loo_sign * off, t, thr_ref,
-                                          qp_ref, spec.q_levels, q_mode)
-                    new = _roll_lanes(out, shifts[b]).astype(dtype)
-                    j = cols[b]
-                    colsum[j] = colsum[j][...] + new  # old removed in pass 1
-                    C[b] = new
-            return carry
-
-        jax.lax.fori_loop(0, T, body, 0)
-
-        # final posterior epilogue (bv quantization applies here, as in
-        # qc_decode_batch_layered). The per-iteration posteriors are never
-        # observed under the check-at-the-end contract, so only iteration
-        # T's is materialized.
-        for j in range(qc.nb):
-            post = rd(llr_ref, j) + colsum[j][...]
-            if with_vqdq:
-                post = _kernel_qdq(post, T - 1, vthr_ref, vqp_ref,
-                                   spec.v2c_levels, v_mode)
-            wr(post_ref, j, post.astype(dtype))
-
-        _syndrome_epilogue(post_ref, fail_ref, PAR, qc, bt, L, dtype, rd)
-
-    return kernel
-
-
-@partial(jax.jit, static_argnames=("qc", "spec", "max_iterations", "dtype",
-                                   "batch_tile", "interpret", "lean",
-                                   "natural", "closed_qdq"))
+@partial(jax.jit, static_argnames=_STATIC)
 def qc_fused_decode_batch_layered(
     llr: jnp.ndarray,            # [B, n]
     weights,
@@ -600,102 +503,22 @@ def qc_fused_decode_batch_layered(
     spec: VariantSpec,
     max_iterations: int,
     dtype=jnp.bfloat16,
-    batch_tile: int | None = 64,
+    batch_tile: int | None = None,
     interpret: bool = False,
     lean: bool = False,
-    natural: bool | None = None,
     closed_qdq: bool = False,
 ) -> DecodeResult:
-    """Layered-schedule whole-decode Pallas kernel.
+    """Layered-schedule whole-decode kernel.
 
     Same layered semantics as ``qc_decode_batch_layered`` (persistent
-    per-block c2v memory, incrementally-maintained column sums, fresh v2c
-    from the current posterior state row by row — the schedule the paper's
-    FPGA uses, §VII-B), with the fused kernel's check-at-the-end contract:
-    the returned posterior is iteration T's, ``success`` is its syndrome,
-    ``iterations`` is T for every frame. Layered converges in roughly
-    0.5-0.6x the flooding iterations at equal FER, so a T=6 layered decode
-    replaces a T=10 flooding one.
+    per-block c2v memory, incrementally maintained column sums, fresh v2c
+    from the current posterior state row by row — the schedule of the
+    paper's FPGA, §VII-B), with the check-at-the-end contract: the
+    returned posterior is iteration T's, ``success`` is its syndrome,
+    ``iterations`` is T for every frame. Options as
+    :func:`qc_fused_decode_batch`.
     """
-    T = max_iterations
-    true_B, n = llr.shape
-    if batch_tile is None:
-        # cap the auto tile at the (8-rounded) batch: a 8-frame call must
-        # not pad up to the max VMEM-fitting tile and decode garbage
-        batch_tile = min(max_batch_tile(qc, layered=True, dtype=dtype),
-                         -(-true_B // 8) * 8)
-    llr, true_B = _pad_batch(llr, batch_tile)
-    Bsz = llr.shape[0]
-    L = qc.lift
-    NB = qc.num_blocks
-    bt = batch_tile
-    est = _fused_vmem_bytes(qc, bt, dtype, layered=True)
-    if est > _VMEM_LIMIT:
-        raise ValueError(
-            f"estimated kernel VMEM {est / 2**20:.1f} MB for "
-            f"batch_tile={bt} exceeds the 16 MB scoped budget; use "
-            f"batch_tile<={max_batch_tile(qc, layered=True, dtype=dtype)} "
-            f"(or batch_tile=None to auto-pick)")
-
-    if natural is None:
-        # AUTO since measured on-chip (2026-08-19, experiments/
-        # lean_ab_results.json): bit-exact vs the block layout on 16384
-        # frames and ~16% faster end-to-end (575.6k vs 495.8k cw/s with
-        # the lean epilogue) — the [nb, B, L] transposes it removes were
-        # pure overhead. Falls back to the block layout when the lift
-        # does not fill the 128 lanes.
-        natural = L % 128 == 0
-    if natural and L % 128:
-        raise ValueError(f"natural layout needs lift % 128 == 0, got {L}")
-    if natural:
-        llr_in = llr.astype(dtype)
-    else:
-        llr_in = llr.astype(dtype).reshape(Bsz, qc.nb, L).transpose(1, 0, 2)
-
-    if spec.beta_idx is not None:
-        beta_tab = weights["beta"][:, jnp.asarray(spec.beta_idx)]
-    else:
-        beta_tab = jnp.full((T, NB), spec.fixed_beta, jnp.float32)
-    if spec.alpha_idx is not None:
-        alpha_tab = weights["alpha"][:, jnp.asarray(spec.alpha_idx)]
-    else:
-        alpha_tab = jnp.full((T, NB), spec.fixed_alpha, jnp.float32)
-
-    def tab(a, w):
-        return (jnp.asarray(a, jnp.float32) if a is not None
-                else jnp.zeros((T, w), jnp.float32))
-
-    thr, qp = tab(spec.thresholds, 1), tab(spec.qparams, 2)
-    vthr, vqp = tab(spec.v2c_thresholds, 1), tab(spec.v2c_qparams, 2)
-
-    kernel = _make_layered_kernel(qc, spec, T, bt, dtype, natural,
-                                  closed_qdq)
-    if natural:
-        blk = pl.BlockSpec((bt, n), lambda i: (i, 0),
-                           memory_space=pltpu.VMEM)
-        post_shape = jax.ShapeDtypeStruct((Bsz, n), dtype)
-    else:
-        blk = pl.BlockSpec((qc.nb, bt, L), lambda i: (0, i, 0),
-                           memory_space=pltpu.VMEM)
-        post_shape = jax.ShapeDtypeStruct((qc.nb, Bsz, L), dtype)
-    fail_blk = pl.BlockSpec((1, bt, L), lambda i: (0, i, 0),
-                            memory_space=pltpu.VMEM)
-    smem = lambda a: pl.BlockSpec(a.shape, lambda i: (0, 0),
-                                  memory_space=pltpu.SMEM)
-    post_out, fail = pl.pallas_call(
-        kernel,
-        grid=(Bsz // bt,),
-        in_specs=[blk, smem(beta_tab), smem(alpha_tab), smem(thr),
-                  smem(qp), smem(vthr), smem(vqp)],
-        out_specs=[blk, fail_blk],
-        out_shape=[post_shape,
-                   jax.ShapeDtypeStruct((1, Bsz, L), dtype)],
-        scratch_shapes=[pltpu.VMEM((NB, bt, L), dtype),
-                        pltpu.VMEM((qc.nb, bt, L), dtype),
-                        pltpu.VMEM((bt, L), jnp.float32)],
-        interpret=interpret,
-    )(llr_in, beta_tab.astype(jnp.float32),
-      alpha_tab.astype(jnp.float32), thr, qp, vthr, vqp)
-
-    return _result_epilogue(post_out, fail, Bsz, n, T, lean, natural,
-                            true_B)
+    return _decode(llr, weights, qc=qc, spec=spec,
+                   max_iterations=max_iterations, dtype=dtype,
+                   batch_tile=batch_tile, interpret=interpret, lean=lean,
+                   closed_qdq=closed_qdq, layered=True)

@@ -181,11 +181,13 @@ class Decoder:
             else:
                 # the lean contract (int8 bits, no posterior) is a fused-
                 # kernel epilogue option; the training/trajectory fallback
-                # always returns the full result
+                # always returns the full result in float32
+                kw = ({} if ste or return_trajectory or "dtype" not in opts
+                      else {"dtype": opts["dtype"]})
                 out = qc_decode_batch_layered(
                     llr, w, qc=self.qc, spec=self.spec,
                     max_iterations=self.max_iterations, ste=ste,
-                    return_trajectory=return_trajectory)
+                    return_trajectory=return_trajectory, **kw)
         elif self.layered:
             out = decode_batch_layered(
                 llr, w, self.layer_checks, graph=self.graph, spec=self.spec,
@@ -202,11 +204,10 @@ class Decoder:
                 opts.pop("batch_tile", None)
                 opts.pop("interpret", None)
                 opts.pop("lean", None)
-                opts.pop("natural", None)
                 opts.pop("closed_qdq", None)
                 fused = False
             if fused:
-                # whole-decode VMEM-resident Pallas kernel; contract ==
+                # whole-decode Pallas kernel; contract ==
                 # qc_decode_batch(check_every=T), so require that schedule
                 from ldpc_tpu.decode.pallas_fused import qc_fused_decode_batch
                 ce = opts.pop("check_every", self.max_iterations)
@@ -220,9 +221,8 @@ class Decoder:
                     llr, w, qc=self.qc, spec=self.spec,
                     max_iterations=self.max_iterations, **opts)
             else:
-                opts.pop("lean", None)     # fused-kernel options only
-                opts.pop("natural", None)
-                opts.pop("closed_qdq", None)
+                for k in ("lean", "closed_qdq", "batch_tile", "interpret"):
+                    opts.pop(k, None)      # fused-kernel options only
                 out = qc_decode_batch(
                     llr, w, qc=self.qc, spec=self.spec,
                     max_iterations=self.max_iterations, ste=ste,

@@ -1,13 +1,14 @@
-"""Device-mesh utilities for multi-chip / multi-host execution.
+"""Device-mesh utilities for multi-device / multi-host execution.
 
 The reference has no distributed execution of any kind (SURVEY §2c — its
-only concurrency is a thread pool over decoders). Here the scaling story is
-TPU-native per the JAX SPMD recipe: pick a ``Mesh``, annotate shardings,
-let XLA insert collectives over ICI/DCN.
+only concurrency is a thread pool over decoders). Here the scaling story
+is the JAX SPMD recipe: pick a ``Mesh``, annotate shardings, let XLA
+insert the collectives (NCCL; the cards of one host are joined all to all
+by NVLink, so the mesh is a flat 1-D batch axis, never a torus shape).
 
 The framework's natural parallel axis is the codeword batch ("data
 parallel" in the domain: frames are independent); weight tables and
-quantizer LUTs are tiny and replicated. Error statistics cross chips as
+quantizer LUTs are tiny and replicated. Error statistics cross devices as
 four ``psum``'d scalars per wave.
 """
 
@@ -27,8 +28,8 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = "batch",
               devices: Optional[Sequence] = None) -> Mesh:
     """1-D mesh over the batch axis (the framework's only sharded axis).
 
-    Uses all visible devices by default — on a multi-host pod slice call
-    :func:`distributed_init` first so ``jax.devices()`` spans hosts.
+    Uses all visible devices by default — across several hosts call
+    :func:`distributed_init` first so ``jax.devices()`` spans them.
     """
     if devices is None:
         devices = jax.devices()
@@ -56,9 +57,10 @@ def distributed_init(coordinator_address: Optional[str] = None,
     """Initialize multi-host JAX (one call per host before device use).
 
     Thin wrapper over ``jax.distributed.initialize`` that no-ops when
-    running single-process (the common dev case) — so the same entry point
-    works on a laptop, one chip, or a pod slice launched via environment
-    variables (TPU pods autoconfigure when args are None).
+    running single-process (the common case: one process drives every
+    card of a host). Several processes need ``coordinator_address``
+    (``host:port``), ``num_processes`` and ``process_id`` given here:
+    nothing in the environment describes the cluster.
     """
     if num_processes in (None, 1) and coordinator_address is None and \
             "COORDINATOR_ADDRESS" not in os.environ:

@@ -1,11 +1,11 @@
 """SPMD Monte-Carlo: shard_map waves with per-device RNG and psum'd stats.
 
 The mesh path used by ``ldpc_tpu.sim`` when a mesh is supplied: every
-device draws its own noise (key folded with its mesh index — no cross-chip
+device draws its own noise (key folded with its mesh index — no cross-device
 RNG traffic), decodes its local shard of the wave, and the four error
 counters cross the interconnect as one fused ``psum``. Weight tables ride
-replicated. This is the scaling-book recipe: shard the batch, replicate the
-tiny model, let XLA place the collectives on ICI.
+replicated: shard the batch, replicate the tiny model, let XLA place the
+collectives (NCCL over NVLink between the cards of one host).
 """
 
 from __future__ import annotations
@@ -18,7 +18,9 @@ from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ldpc_tpu.channel import awgn_llr, puncture_llr
+from ldpc_tpu.decode.early_exit import onehot_select
 from ldpc_tpu.decode.variants import Decoder
+from ldpc_tpu.sim.montecarlo import _fuse_opts
 
 __all__ = ["make_spmd_wave_fn", "make_spmd_compacting_wave_fn",
            "make_spmd_two_checkpoint_stats_fn"]
@@ -71,14 +73,14 @@ def make_spmd_compacting_wave_fn(decoder: Decoder, wave_size: int,
                                  early_iters: int, survivor_budget: int,
                                  mesh: Mesh, axis_name: str = "batch",
                                  stage1_fused: bool = False,
-                                 stage1_batch_tile: int = 64,
+                                 stage1_batch_tile: int | None = None,
                                  punctured=None) -> Callable:
     """SPMD early-termination compaction: every device compacts its own
     shard locally (truncated decode -> cumsum-ranked one-hot-matmul
     survivor extraction -> full-depth re-decode), stats cross the mesh as
     one psum. No survivor data ever crosses the interconnect — compaction
-    is embarrassingly local, the TPU-native answer to the reference's
-    total absence of parallel simulation (SURVEY §2c).
+    is embarrassingly local, the answer to the reference's total absence
+    of parallel simulation (SURVEY §2c).
 
     Per-device survivor overflow falls back to a full-depth decode of that
     device's whole shard via ``lax.cond`` (device-local, still exact), so
@@ -109,13 +111,8 @@ def make_spmd_compacting_wave_fn(decoder: Decoder, wave_size: int,
         if decoder.qc is None or ce != T1:
             raise ValueError("stage1_fused needs a QC decoder with "
                              "check_every == early_iters")
-        opts = dict(short.qc_options or {})
-        opts.pop("check_every", None)
-        opts.pop("unroll", None)
-        opts.update(fused=True, batch_tile=stage1_batch_tile)
-        if jax.default_backend() == "cpu":
-            opts["interpret"] = True
-        short = _dc.replace(short, qc_options=opts)
+        short = _dc.replace(short, qc_options=_fuse_opts(
+            short.qc_options or {}, stage1_batch_tile))
 
     def _cut(w):
         return jax.tree_util.tree_map(lambda a: a[:T1], w)
@@ -142,7 +139,7 @@ def make_spmd_compacting_wave_fn(decoder: Decoder, wave_size: int,
             rank = jnp.cumsum(unconv.astype(jnp.int32)) - 1
             sel = ((rank[None, :] == jnp.arange(S)[:, None]) &
                    unconv[None, :]).astype(jnp.float32)
-            out2 = decoder(sel @ llr, weights)
+            out2 = decoder(onehot_select(sel, llr), weights)
             valid = jnp.arange(S) < n_surv
             fe2, be2, it2, sc2 = _stats(out2.bits, out2.iterations,
                                         out2.success, valid)

@@ -91,7 +91,7 @@ def _threshold_index(mag: jnp.ndarray, thresholds: jnp.ndarray) -> jnp.ndarray:
     ``jnp.searchsorted(side='right') - 1`` is exactly that index for a sorted
     LUT. The naive broadcast compare materializes an ``[..., L]`` intermediate
     — at bv=8 that is a 128x blowup of the message tensor and dominated the
-    whole decode on TPU; binary search keeps the working set at the message
+    whole decode; binary search keeps the working set at the message
     size times log2(L) steps.
     """
     if thresholds.ndim == 1:
@@ -201,10 +201,10 @@ def power_qdq(x: jnp.ndarray, C, gamma, levels: int) -> jnp.ndarray:
     Mathematically identical to ``quantize_dequantize(x, power_thresholds
     (b, C, gamma))`` — snap |x| down to the largest ``tau_j = C*(j/M)^gamma``
     with ``tau_j <= |x|`` (M = levels-1) — but computed elementwise by
-    inverting the power law instead of scanning/searching a LUT. On TPU the
-    LUT forms are catastrophic: broadcast-compare materializes an
+    inverting the power law instead of scanning/searching a LUT. The
+    LUT forms are costly: broadcast-compare materializes an
     ``[..., L]`` intermediate (128x blowup at bv=8) and ``searchsorted``
-    lowers to per-element dynamic gathers; this version is pure VPU math
+    lowers to per-element dynamic gathers; this version is pure elementwise math
     that XLA fuses into the surrounding kernel.
 
     Two boundary-correction selects make the index exact under float
@@ -232,7 +232,7 @@ def power_qdq(x: jnp.ndarray, C, gamma, levels: int) -> jnp.ndarray:
 def uniform_qdq(x: jnp.ndarray, C, levels: int) -> jnp.ndarray:
     """Closed-form quantize∘dequantize for UNIFORM thresholds (the gamma=1
     special case of :func:`power_qdq`): ``tau_j = C*j/M``. Pure arithmetic
-    — no transcendentals — so it is the TPU-preferred form for the
+    — no transcendentals — so it is the preferred form for the
     high-resolution bv-bit internal quantizer (bv=8 uniform is visually
     indistinguishable from bv=8 power-law in FER; measure per code with
     ``experiments/accuracy_bc3.py``-style sweeps).

@@ -5,7 +5,7 @@ Capability parity with the reference's ``GradientExplosionAnalyzer``
 gradient norms through the unrolled decoder to demonstrate the paper's
 gradient-explosion claim (paper §V) and the posterior-joint-training fix.
 
-TPU-first: per-sample gradients come from ``jax.vmap(jax.grad(...))`` — one
+Batched: per-sample gradients come from ``jax.vmap(jax.grad(...))`` — one
 compiled program evaluates the whole batch of per-sample norms, instead of
 the reference's per-sample Python loop of separate ``backward()`` calls.
 """

@@ -18,9 +18,9 @@ artifacts — with the parts that never worked in the reference fixed:
   (``ldpc_tpu.quantizer.qdq_ste``) — the reference's RCQ path is
   inference-only.
 
-TPU-first: one jitted ``train_step`` (decode → loss → grad → clip → Adam)
+Batched: one jitted ``train_step`` (decode → loss → grad → clip → Adam)
 per batch; data generation is a jitted on-device sampler, so epochs never
-touch host memory. For multi-chip data parallelism pass a ``mesh`` — batches
+touch host memory. For multi-device data parallelism pass a ``mesh`` — batches
 are sharded over the batch axis and XLA inserts the gradient ``psum``.
 """
 

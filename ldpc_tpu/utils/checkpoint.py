@@ -3,9 +3,11 @@ long-running Monte-Carlo simulations.
 
 The reference has NO persistence for model weights (no ``torch.save``
 anywhere — SURVEY §5 "Checkpoint/resume: none"); its only persistence is
-simulation-results JSON. Here checkpointing is a first-class capability via
-orbax: weight tables + optimizer state for training, and (RNG key, error
-counters, frames) for resumable Monte-Carlo runs.
+simulation-results JSON. Here a checkpoint is a directory holding
+``arrays.npz`` (one array per pytree leaf) and ``tree.json`` (each leaf's
+key path): weight tables + optimizer state for training, and (RNG key,
+error counters, frames) for resumable Monte-Carlo runs. numpy and JSON
+only, so it reads back anywhere the package runs.
 """
 
 from __future__ import annotations
@@ -24,19 +26,62 @@ __all__ = [
     "load_trainer_checkpoint",
 ]
 
+_ARRAYS = "arrays.npz"
+_TREE = "tree.json"
 
-def _checkpointer():
-    import orbax.checkpoint as ocp
-    return ocp.PyTreeCheckpointer()
+
+def _path_json(path) -> list:
+    """A pytree key path as JSON: ["d", key] dict entry, ["i", index]
+    sequence entry, ["a", name] attribute (NamedTuple field)."""
+    out = []
+    for k in path:
+        if isinstance(k, jax.tree_util.DictKey):
+            out.append(["d", k.key])
+        elif isinstance(k, jax.tree_util.SequenceKey):
+            out.append(["i", k.idx])
+        elif isinstance(k, jax.tree_util.GetAttrKey):
+            out.append(["a", k.name])
+        elif isinstance(k, jax.tree_util.FlattenedIndexKey):
+            out.append(["i", k.key])
+        else:
+            raise TypeError(f"unsupported pytree key {k!r}")
+    return out
+
+
+def _leaves_with_paths(tree):
+    flat, treedef = jax.tree_util.tree_flatten_with_path(tree)
+    return [(_path_json(p), leaf) for p, leaf in flat], treedef
+
+
+def _nest(paths, arrays):
+    """Rebuild nested dicts/lists from key paths (no template)."""
+    root: dict = {}
+    for path, a in zip(paths, arrays):
+        node = root
+        for kind, key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1][1]] = a
+
+    def fix(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: fix(v) for k, v in node.items()}
+        if node and all(isinstance(k, int) for k in node):
+            return [node[i] for i in sorted(node)]
+        return node
+    return fix(root)
 
 
 def save_checkpoint(path: str, tree: Any) -> str:
     """Save any pytree (weight dicts, optimizer states, counters) to
-    ``path`` (a directory) via orbax."""
+    ``path`` (a directory); ``None`` entries are dropped."""
     path = os.path.abspath(path)
-    # orbax requires leaves, not None entries
-    tree = jax.tree_util.tree_map(np.asarray, _strip_none(tree))
-    _checkpointer().save(path, tree, force=True)
+    os.makedirs(path, exist_ok=True)
+    leaves, _ = _leaves_with_paths(_strip_none(tree))
+    np.savez(os.path.join(path, _ARRAYS),
+             **{f"a{i}": np.asarray(x) for i, (_, x) in enumerate(leaves)})
+    with open(os.path.join(path, _TREE), "w") as f:
+        json.dump([p for p, _ in leaves], f)
     return path
 
 
@@ -45,11 +90,29 @@ def load_checkpoint(path: str, item: Any = None) -> Any:
 
     ``item``: optional template pytree — the restore is mapped into its
     exact structure (NamedTuple fields, tuple order), which matters for
-    optax states whose flatten order differs from orbax's sorted-dict
-    order."""
-    if item is not None:
-        return _checkpointer().restore(os.path.abspath(path), item=item)
-    return _checkpointer().restore(os.path.abspath(path))
+    optax states; a template whose key paths or leaf shapes differ from
+    the saved ones raises ``ValueError``. Without it, dict and sequence
+    nodes come back as dicts and lists."""
+    path = os.path.abspath(path)
+    with open(os.path.join(path, _TREE)) as f:
+        paths = [[tuple(e) for e in p] for p in json.load(f)]
+    with np.load(os.path.join(path, _ARRAYS)) as z:
+        arrays = [z[f"a{i}"] for i in range(len(paths))]
+    if item is None:
+        return _nest(paths, arrays)
+    want, treedef = _leaves_with_paths(item)
+    saved = {tuple(map(tuple, p)): a for p, a in zip(paths, arrays)}
+    out = []
+    for p, leaf in want:
+        a = saved.get(tuple(map(tuple, p)))
+        if a is None or np.shape(a) != np.shape(leaf):
+            raise ValueError(f"checkpoint at {path} has no leaf matching "
+                             f"{p} with shape {np.shape(leaf)}")
+        out.append(a)
+    if len(out) != len(saved):
+        raise ValueError(f"checkpoint at {path} holds {len(saved)} leaves, "
+                         f"the template {len(out)}")
+    return jax.tree_util.tree_unflatten(treedef, out)
 
 
 def _strip_none(tree):
@@ -84,8 +147,8 @@ def load_trainer_checkpoint(path: str, trainer) -> int:
     ``trainer``; returns the saved epoch.
 
     The optimizer state is restored INTO a freshly-initialized template
-    (``orbax`` item-restore), so NamedTuple field order is preserved
-    regardless of orbax's sorted-dict flatten order, and any structure
+    (template restore), so NamedTuple field order is preserved, and any
+    structure
     mismatch (different optimizer, different weight shapes) raises instead
     of silently resuming with reset Adam moments."""
     raw = load_checkpoint(path)

@@ -1,7 +1,7 @@
 """Profiling / throughput counters.
 
 The reference's only observability is wall-clock deltas
-(``simulation_framework.py:100,137``, SURVEY §5). TPU equivalents here:
+(``simulation_framework.py:100,137``, SURVEY §5). Device equivalents here:
 ``jax.profiler`` trace capture (kernel-level timelines viewable in
 XProf/TensorBoard or parseable from the emitted ``.trace.json.gz``) and a
 decoded-codewords/sec counter — the BASELINE.json north-star metric.

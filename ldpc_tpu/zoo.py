@@ -7,7 +7,7 @@ A zoo entry is a directory:
     protograph.txt   (QC codes) shift matrix + lift — codes.save_protograph
     code.alist       (general codes) standard alist of H
 
-Unlike the orbax training checkpoints (``utils/checkpoint.py``, which also
+Unlike the training checkpoints (``utils/checkpoint.py``, which also
 carry optimizer state and are tied to a Trainer), zoo entries are small,
 text+npz, dependency-free, and self-describing: ``load_pretrained`` rebuilds
 the exact decoder (code, variant, quantizers, schedule) and installs the

@@ -6,6 +6,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import ldpc_tpu
 from ldpc_tpu.channel import awgn_llr
@@ -157,3 +158,52 @@ def test_two_checkpoint_lean():
                                   np.asarray(out_f.success))
     np.testing.assert_array_equal(np.asarray(out_l.iterations),
                                   np.asarray(out_f.iterations))
+
+
+def _dot_precisions(jaxpr):
+    """Precision of every dot_general in a jaxpr, nested ones included."""
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for v in eqn.params.values():
+            for sub in (v if isinstance(v, (list, tuple)) else (v,)):
+                if hasattr(sub, "eqns"):
+                    out += _dot_precisions(sub)
+                elif hasattr(getattr(sub, "jaxpr", None), "eqns"):
+                    out += _dot_precisions(sub.jaxpr)
+    return out
+
+
+@pytest.mark.parametrize("path", ["early_exit", "sim", "parallel"])
+def test_compaction_matmuls_are_full_precision(path):
+    """The one-hot survivor matmuls on float32 LLRs carry
+    ``Precision.HIGHEST``: on a GPU a default-precision f32 matmul may run
+    in TF32, which would re-decode survivors on rounded LLRs."""
+    from jax.sharding import Mesh
+
+    from ldpc_tpu.parallel.montecarlo import make_spmd_compacting_wave_fn
+    from ldpc_tpu.sim.montecarlo import _make_compacting_wave_fn
+
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 16, size=(2, 5))
+    code = ldpc_tpu.create_qc_code(base, lift=16, max_iterations=4)
+    dec = ldpc_tpu.make_decoder(code, kind="rcq", bc=3, max_iterations=4,
+                                qc=build_qc_graph(base, 16))
+    key, snr = jax.random.PRNGKey(0), jnp.float32(3.0)
+    if path == "early_exit":
+        fn = make_two_checkpoint_decoder(dec, t1=2, survivor_budget=8)
+        jaxpr = jax.make_jaxpr(fn)(jnp.zeros((32, code.n), jnp.float32))
+    elif path == "sim":
+        wave = _make_compacting_wave_fn(dec, 32, early_iters=2,
+                                        survivor_budget=8)
+        jaxpr = jax.make_jaxpr(wave.compacted)(key, snr, dec.weights)
+    else:
+        mesh = Mesh(np.array(jax.devices()[:2]), ("batch",))
+        fn = make_spmd_compacting_wave_fn(dec, 32, 2, 8, mesh)
+        jaxpr = jax.make_jaxpr(fn)(key, snr, dec.weights)
+    precs = _dot_precisions(jaxpr.jaxpr)
+    assert precs, "no compaction matmul found"
+    for p in precs:
+        p = p if isinstance(p, tuple) else (p, p)
+        assert all(x == jax.lax.Precision.HIGHEST for x in p), precs

@@ -1,4 +1,4 @@
-"""Engine correctness: the batched TPU engine must agree with an
+"""Engine correctness: the batched engine must agree with an
 independently-written dense-matrix numpy oracle on every variant."""
 
 import jax

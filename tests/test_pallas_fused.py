@@ -1,5 +1,6 @@
-"""Whole-decode fused Pallas kernel vs the XLA QC engine (interpret mode;
-the on-chip bf16 check is in bench/experiments).
+"""Whole-decode fused Pallas kernels vs the XLA QC engines (interpret mode;
+the compiled kernels are checked on the GPU by ``chip_smoke.py`` and by the
+``gpu``-marked test at the end of this file).
 
 The fused kernel's contract is qc_decode_batch(check_every=T): final-
 iteration posterior, syndrome evaluated once at the end. Hard outputs
@@ -17,7 +18,8 @@ import pytest
 
 import ldpc_tpu
 from ldpc_tpu.channel import awgn_llr
-from ldpc_tpu.decode.pallas_fused import qc_fused_decode_batch
+from ldpc_tpu.decode.pallas_fused import (auto_batch_tile,
+                                          qc_fused_decode_batch)
 from ldpc_tpu.decode.qc_engine import build_qc_graph, qc_decode_batch
 
 
@@ -89,21 +91,25 @@ def test_fused_row_regular_full_base():
 
 
 def test_fused_pads_bad_tile_and_rejects_vmem():
+    """Any tile works: a tile that does not divide the batch leaves the
+    last program part-full (its spare frames are skipped, not decoded);
+    a tile below one frame is refused; the auto tile gives a small batch
+    one frame per program."""
     T = 4
     code, qc, dec = _setup(2, 4, 16, T, base_seed=2, kind="ms")
-    llr = jnp.zeros((64, code.n))
-    # a non-dividing tile no longer raises: the batch zero-pads up (to
-    # 96 here) and the outputs slice back to the true batch
+    llr = awgn_llr(jax.random.PRNGKey(1), jnp.zeros((64, code.n)), 2.0)
     out = qc_fused_decode_batch(llr, dec.weights, qc=qc, spec=dec.spec,
                                 max_iterations=T, batch_tile=48,
-                                interpret=True)
+                                dtype=jnp.float32, interpret=True)
     assert out.bits.shape == (64, code.n)
-    # the scoped-VMEM budget guard still rejects oversized tiles
-    with pytest.raises(ValueError, match="VMEM"):
+    ref = qc_decode_batch(llr, dec.weights, qc=qc, spec=dec.spec,
+                          max_iterations=T, check_every=T)
+    np.testing.assert_array_equal(np.asarray(out.bits), np.asarray(ref.bits))
+    with pytest.raises(ValueError, match="batch_tile"):
         qc_fused_decode_batch(llr, dec.weights, qc=qc, spec=dec.spec,
-                              max_iterations=T, batch_tile=4096,
+                              max_iterations=T, batch_tile=0,
                               interpret=True)
-    # auto-pick caps at the (8-rounded) batch, not the max VMEM tile
+    assert auto_batch_tile(qc, 8, dtype=jnp.float32, layered=False) == 1
     small = qc_fused_decode_batch(llr[:8], dec.weights, qc=qc,
                                   spec=dec.spec, max_iterations=T,
                                   batch_tile=None, interpret=True)
@@ -205,26 +211,31 @@ def test_decoder_layered_fused_option():
 
 
 def test_max_batch_tile_accounting():
-    """The VMEM estimator admits the known-good bench graph at tile 64 and
-    rejects the known-OOM DVB-S2 lift-360 graph at 64 (the v5e compiler
-    measured 21.42 MB scoped VMEM for it — the auto-pick must stay under
-    the 16 MB budget)."""
+    """The auto tile keeps the whole grid's scratch within the L2 budget:
+    one bench frame is 113,664 B of layered bf16 state (185x256 c2v +
+    37x256 column sums), so B=32768 runs on ~295 programs; the lift-360
+    code's state is counted at its true lift, not the padded lanes."""
     from ldpc_tpu.codes import load_protograph
-    from ldpc_tpu.decode.pallas_fused import (_fused_vmem_bytes,
-                                              max_batch_tile)
+    from ldpc_tpu.decode.pallas_fused import _L2_BUDGET, state_bytes
 
     rng = np.random.default_rng(0)
     bench_qc = build_qc_graph(rng.integers(0, 256, size=(5, 37)), 256)
-    assert max_batch_tile(bench_qc, layered=True) >= 64
+    assert state_bytes(bench_qc, jnp.bfloat16, layered=True) == 113_664
+    assert state_bytes(bench_qc, jnp.bfloat16, layered=False) == 94_720
+    for B in (32768, 4080, 128):
+        bt = auto_batch_tile(bench_qc, B, layered=True)
+        programs = -(-B // bt)
+        assert programs * bt >= B > (programs - 1) * bt
+        assert programs * 113_664 <= _L2_BUDGET
+    assert auto_batch_tile(bench_qc, 128, layered=True) == 1
+    assert auto_batch_tile(bench_qc, 32768, layered=True) > 1
 
     b2, lift2 = load_protograph("codes/dvbs2_like_16200_7200.proto")
     qc2 = build_qc_graph(b2, lift2)
-    bt2 = max_batch_tile(qc2, layered=True)
-    assert bt2 < 64
-    assert _fused_vmem_bytes(qc2, bt2, jnp.bfloat16, True) <= 16 * 2 ** 20
-    # divisor constraint: candidate tiles must divide the batch
-    assert 4080 % max_batch_tile(qc2, layered=True, batch=4080) == 0
-    assert 4096 % max_batch_tile(qc2, layered=True, batch=4096) == 0
+    assert state_bytes(qc2, jnp.float32, layered=True) == \
+        4 * (qc2.num_blocks * 360 + 16200)
+    bt2 = auto_batch_tile(qc2, 4096, dtype=jnp.float32, layered=True)
+    assert -(-4096 // bt2) * state_bytes(qc2, jnp.float32) <= _L2_BUDGET
 
 
 def test_fused_auto_batch_tile_interpret():
@@ -286,37 +297,39 @@ def test_lean_via_decoder_options():
 
 
 def test_natural_layout_matches_block_layout():
-    """natural=True routes llr/posterior through [B, n] layout (no XLA
-    transposes; opt-in until validated on real Mosaic); outputs must
-    match the block layout bit-for-bit on both fused kernels, lean and
-    full."""
+    """The kernels read the LLRs and write the posterior (or lean int8
+    bits) in their natural [B, n] layout at any lift — a column is a plain
+    offset — and agree with the XLA engine at a lift-128 and at a lift
+    that is not a power of two, lean and full."""
     from ldpc_tpu.decode.pallas_fused import qc_fused_decode_batch_layered
+    from ldpc_tpu.decode.qc_engine import qc_decode_batch_layered
 
     T = 4
-    code, qc, dec = _setup(2, 5, 128, T, base_seed=6, density=0.9,
-                           kind="rcq", bc=3, bv=8)
-    assert qc.lift % 128 == 0
-    llr = awgn_llr(jax.random.PRNGKey(11), jnp.zeros((24, code.n)), 2.0)
-    for fn in (qc_fused_decode_batch, qc_fused_decode_batch_layered):
-        blockl = fn(llr, dec.weights, qc=qc, spec=dec.spec,
-                    max_iterations=T, dtype=jnp.float32, batch_tile=8,
-                    interpret=True, natural=False)
-        nat = fn(llr, dec.weights, qc=qc, spec=dec.spec, max_iterations=T,
-                 dtype=jnp.float32, batch_tile=8, interpret=True,
-                 natural=True)
-        np.testing.assert_array_equal(np.asarray(nat.bits),
-                                      np.asarray(blockl.bits))
-        np.testing.assert_array_equal(np.asarray(nat.success),
-                                      np.asarray(blockl.success))
-        np.testing.assert_allclose(np.asarray(nat.posterior),
-                                   np.asarray(blockl.posterior),
-                                   rtol=0, atol=0)
-        lean = fn(llr, dec.weights, qc=qc, spec=dec.spec, max_iterations=T,
-                  dtype=jnp.float32, batch_tile=8, interpret=True,
-                  lean=True, natural=True)
-        assert lean.posterior is None
-        np.testing.assert_array_equal(np.asarray(lean.bits),
-                                      np.asarray(blockl.bits))
+    for lift in (128, 24):
+        code, qc, dec = _setup(2, 5, lift, T, base_seed=6, density=0.9,
+                               kind="rcq", bc=3, bv=8)
+        llr = awgn_llr(jax.random.PRNGKey(11), jnp.zeros((6, code.n)), 2.0)
+        flood = qc_decode_batch(llr, dec.weights, qc=qc, spec=dec.spec,
+                                max_iterations=T, check_every=T)
+        lay = qc_decode_batch_layered(llr, dec.weights, qc=qc,
+                                      spec=dec.spec, max_iterations=T,
+                                      return_trajectory=True)
+        lay_last = np.asarray(lay.posteriors_all[-1])
+        for fn, ref_post in ((qc_fused_decode_batch,
+                              np.asarray(flood.posterior)),
+                             (qc_fused_decode_batch_layered, lay_last)):
+            full = fn(llr, dec.weights, qc=qc, spec=dec.spec,
+                      max_iterations=T, dtype=jnp.float32, batch_tile=4,
+                      interpret=True)
+            assert full.posterior.shape == (6, code.n)
+            np.testing.assert_allclose(np.asarray(full.posterior), ref_post,
+                                       rtol=1e-6, atol=1e-5)
+            lean = fn(llr, dec.weights, qc=qc, spec=dec.spec,
+                      max_iterations=T, dtype=jnp.float32, batch_tile=4,
+                      interpret=True, lean=True)
+            assert lean.posterior is None
+            np.testing.assert_array_equal(np.asarray(lean.bits),
+                                          (ref_post < 0).astype(np.int8))
 
 
 def test_arbitrary_batch_sizes_are_padded():
@@ -346,8 +359,8 @@ def test_arbitrary_batch_sizes_are_padded():
 
 @pytest.mark.parametrize("kw", [
     # bc=5 (16 levels): the case closed_qdq exists for — the unrolled
-    # staircase makes on-chip Mosaic compiles pathological (>35 min,
-    # CLAUDE.md), while the closed form is O(1) ops per qdq call.
+    # staircase is 15 compare+add pairs per qdq call, the closed form
+    # O(1) ops.
     dict(kind="rcq", bc=5,
          quantizer_params=((3.0, 1.3), (5.0, 1.3), (7.0, 1.3))),
     dict(kind="rcq", bc=5, bv=8,
@@ -423,3 +436,82 @@ def test_closed_qdq_spec_three_way_parity():
     np.testing.assert_allclose(np.asarray(fus.posterior),
                                np.asarray(eng.posterior),
                                rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("lift", [31, 43, 360])
+def test_unpadded_lifts_match_engine(lift):
+    """Lifts that are not powers of two are padded to the next one with
+    masked lanes: both kernels still equal the XLA engines exactly."""
+    from ldpc_tpu.decode.pallas_fused import qc_fused_decode_batch_layered
+    from ldpc_tpu.decode.qc_engine import qc_decode_batch_layered
+
+    T = 4
+    code, qc, dec = _setup(2, 4, lift, T, base_seed=lift, density=0.9,
+                           kind="orcq", bc=3, sharing_type=2, seed=2)
+    llr = awgn_llr(jax.random.PRNGKey(lift), jnp.zeros((4, code.n)), 2.5)
+    ref = qc_decode_batch(llr, dec.weights, qc=qc, spec=dec.spec,
+                          max_iterations=T, check_every=T)
+    out = qc_fused_decode_batch(llr, dec.weights, qc=qc, spec=dec.spec,
+                                max_iterations=T, dtype=jnp.float32,
+                                batch_tile=2, interpret=True)
+    np.testing.assert_array_equal(np.asarray(out.bits), np.asarray(ref.bits))
+    np.testing.assert_array_equal(np.asarray(out.success),
+                                  np.asarray(ref.success))
+    np.testing.assert_allclose(np.asarray(out.posterior),
+                               np.asarray(ref.posterior), rtol=1e-6,
+                               atol=1e-5)
+    lay = qc_decode_batch_layered(llr, dec.weights, qc=qc, spec=dec.spec,
+                                  max_iterations=T, return_trajectory=True)
+    outl = qc_fused_decode_batch_layered(
+        llr, dec.weights, qc=qc, spec=dec.spec, max_iterations=T,
+        dtype=jnp.float32, batch_tile=2, interpret=True)
+    np.testing.assert_allclose(np.asarray(outl.posterior),
+                               np.asarray(lay.posteriors_all[-1]),
+                               rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("layered", [False, True])
+def test_kernel_refuses_cpu_without_interpret(layered):
+    """Without ``interpret=True`` the kernels compile for a GPU only; on a
+    CPU backend they raise instead of running anything quietly."""
+    from ldpc_tpu.decode.pallas_fused import qc_fused_decode_batch_layered
+
+    T = 2
+    code, qc, dec = _setup(2, 4, 16, T, base_seed=1, kind="ms")
+    fn = qc_fused_decode_batch_layered if layered else qc_fused_decode_batch
+    with pytest.raises(RuntimeError, match="interpret=True"):
+        fn(jnp.zeros((4, code.n)), dec.weights, qc=qc, spec=dec.spec,
+           max_iterations=T)
+
+
+@pytest.mark.gpu
+def test_compiled_kernels_match_engine_on_gpu(gpu_device):
+    """The kernels as compiled for the card (no interpret mode) against
+    the XLA engines: f32 hard outputs equal, posteriors to float
+    tolerance (the two compilers contract mul+add differently)."""
+    from ldpc_tpu.decode.pallas_fused import qc_fused_decode_batch_layered
+    from ldpc_tpu.decode.qc_engine import qc_decode_batch_layered
+
+    T = 5
+    code, qc, dec = _setup(3, 8, 48, T, base_seed=3, density=0.85,
+                           kind="rcq", bc=3, bv=8)
+    llr = awgn_llr(jax.random.PRNGKey(5), jnp.zeros((64, code.n)), 2.5)
+    with jax.default_matmul_precision("highest"):
+        ref = qc_decode_batch(llr, dec.weights, qc=qc, spec=dec.spec,
+                              max_iterations=T, check_every=T)
+        lay = qc_decode_batch_layered(llr, dec.weights, qc=qc,
+                                      spec=dec.spec, max_iterations=T,
+                                      return_trajectory=True)
+    out = qc_fused_decode_batch(llr, dec.weights, qc=qc, spec=dec.spec,
+                                max_iterations=T, dtype=jnp.float32)
+    np.testing.assert_array_equal(np.asarray(out.bits), np.asarray(ref.bits))
+    np.testing.assert_array_equal(np.asarray(out.success),
+                                  np.asarray(ref.success))
+    outl = qc_fused_decode_batch_layered(llr, dec.weights, qc=qc,
+                                         spec=dec.spec, max_iterations=T,
+                                         dtype=jnp.float32)
+    last = np.asarray(lay.posteriors_all[-1])
+    np.testing.assert_array_equal(np.asarray(outl.bits),
+                                  (last < 0).astype(np.int32))
+    np.testing.assert_allclose(np.asarray(outl.posterior), last,
+                               rtol=1e-5, atol=1e-4)

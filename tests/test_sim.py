@@ -255,18 +255,17 @@ def test_compacting_wave_fused_stage1_exact():
     base = np.array([[0, 3, 5, 7, 2], [4, 1, 6, 0, 3]])
     code = ldpc_tpu.create_qc_code(base, lift=16, max_iterations=8)
     qc = build_qc_graph(base, 16)
+    # interpret-mode kernel on CPU: the caller sets it in qc_options
     dec = ldpc_tpu.rcq_min_sum(
         code, bc=4, max_iterations=8, qc=qc,
-        qc_options={"check_every": 2})
+        qc_options={"check_every": 2, "interpret": True})
     full = _make_wave_fn(dec, 256)
     comp = _make_compacting_wave_fn(dec, 256, early_iters=2,
                                     survivor_budget=192)
     compf = _make_compacting_wave_fn(dec, 256, early_iters=2,
                                      survivor_budget=192, stage1_fused=True,
                                      stage1_batch_tile=32)
-    # interpret-mode kernel on CPU: patch the option through qc_options
     key = jax.random.PRNGKey(17)
-    import ldpc_tpu.sim.montecarlo as mc
     a = tuple(int(v) for v in full(key, jnp.float32(2.5), dec.weights))
     b = tuple(int(v) for v in comp(key, jnp.float32(2.5), dec.weights))
     c = tuple(int(v) for v in compf(key, jnp.float32(2.5), dec.weights))
@@ -368,25 +367,35 @@ def test_punctured_simulation():
 
 def test_two_checkpoint_inherits_parent_batch_tile():
     """The compaction wave must honor the parent decoder's own
-    batch_tile — in particular batch_tile=None (auto-pick): forcing the
-    config default of 64 on a graph whose kernel only fits at a smaller
-    tile raised the fused kernel's VMEM guard (hit in round 4 by the
-    73-column rate-1/3 PBRL under f32/interpret)."""
-    from ldpc_tpu.decode.pallas_fused import _VMEM_LIMIT, _fused_vmem_bytes
+    batch_tile — in particular batch_tile=None (auto-size the kernel's
+    grid from the L2 budget) — over the config's stage-1 tile, and must
+    add no ``interpret`` of its own: that choice is the caller's."""
     from ldpc_tpu.decode.qc_engine import build_qc_graph
-    from ldpc_tpu.sim.montecarlo import _make_compacting_wave_fn
+    from ldpc_tpu.sim.montecarlo import _fuse_opts, _make_compacting_wave_fn
 
+    assert _fuse_opts({"batch_tile": None}, 32)["batch_tile"] is None
+    assert _fuse_opts({"dtype": jnp.float32}, 32)["batch_tile"] == 32
     rng = np.random.default_rng(3)
-    base = rng.integers(0, 256, size=(8, 32))   # big enough in f32
-    code = ldpc_tpu.create_qc_code(base, lift=256, max_iterations=2)
-    qc = build_qc_graph(base, 256)
-    assert _fused_vmem_bytes(qc, 64, jnp.float32, layered=True) \
-        > _VMEM_LIMIT          # the config default of 64 would not fit
+    base = rng.integers(0, 32, size=(3, 12))
+    code = ldpc_tpu.create_qc_code(base, lift=32, max_iterations=2)
+    qc = build_qc_graph(base, 32)
     dec = ldpc_tpu.rcq_min_sum(
         code, bc=3, max_iterations=2, qc=qc, layered=True,
         qc_options={"fused": True, "batch_tile": None, "interpret": True,
                     "dtype": jnp.float32})
     wave = _make_compacting_wave_fn(dec, wave_size=16, early_iters=1,
-                                    survivor_budget=8)
+                                    survivor_budget=8, stage1_batch_tile=3)
     out = wave(jax.random.PRNGKey(0), jnp.float32(6.0), dec.weights)
-    assert int(out[0]) >= 0    # ran end-to-end, no VMEM guard raise
+    assert int(out[0]) >= 0    # ran end-to-end on the auto-sized grid
+
+
+@pytest.mark.parametrize("parent", [{}, {"interpret": True}])
+def test_fuse_opts_adds_no_interpret(parent):
+    """Library code never turns interpret mode on by itself: the fused
+    options carry ``interpret`` only when the parent decoder set it."""
+    from ldpc_tpu.sim.montecarlo import _fuse_opts
+
+    o = _fuse_opts(dict(parent, check_every=2, unroll=True), None)
+    assert o["fused"] is True
+    assert "check_every" not in o and "unroll" not in o
+    assert o.get("interpret") == parent.get("interpret")
