@@ -7,8 +7,10 @@ paper's (9472, 8192) family).
 
 1. Kernel parity at bench width: the compiled layered kernel (f32)
    against the XLA layered engine on the GPU and on the CPU, and in bf16
-   against the GPU engine; the compiled flooding kernel against the plain
-   numpy reference (``decode/oracle.py``).
+   against the GPU engine, at one frame per program and again at the
+   bench's stage-1 tile and at a tile that leaves a program part-full;
+   the compiled flooding kernel against the plain numpy reference
+   (``decode/oracle.py``).
 2. The bench program (``bench.build``: layered T=6 RCQ, {3, 6}
    two-checkpoint early exit, S=128) for a few waves of 32768 frames at
    7.0 dB: survivor budget never exceeded, FER, cw/s, compile time.
@@ -46,6 +48,9 @@ FLOOD_FRAMES = 8
 # posteriors agree to float rounding, not to the bit.
 POST_RTOL, POST_ATOL = 1e-5, 1e-4
 BF16_BIT_AGREEMENT = 0.9999
+# multi-frame tiles: the bench's stage-1 tile (auto_batch_tile(bench.B))
+# and 112, which splits the 256 frames 112 + 112 + 32
+OTHER_TILE = 112
 CAMPAIGN_WAVE, CAMPAIGN_WAVES = 32768, 2
 TRAIN_STEPS = 3
 DP_LOSS_RTOL = 1e-5   # data-parallel vs one-card loss: reduction order
@@ -82,9 +87,11 @@ def phase_parity(code, dec):
     import jax
     import jax.numpy as jnp
 
+    import bench
     from ldpc_tpu.channel import awgn_llr
     from ldpc_tpu.decode.oracle import oracle_decode
-    from ldpc_tpu.decode.pallas_fused import (qc_fused_decode_batch,
+    from ldpc_tpu.decode.pallas_fused import (auto_batch_tile,
+                                              qc_fused_decode_batch,
                                               qc_fused_decode_batch_layered)
     from ldpc_tpu.decode.qc_engine import qc_decode_batch_layered
 
@@ -135,6 +142,32 @@ def phase_parity(code, dec):
                                   _syndrome_ok(code.H, ref_b),
                                   err_msg="bf16 success set")
 
+    # Programs that decode several frames reuse their scratch behind
+    # barriers; a race there would show only here, as interpret mode runs
+    # in program order.
+    tiles = (auto_batch_tile(bench.B), OTHER_TILE)
+    for bt in tiles:
+        kt = qc_fused_decode_batch_layered(llr, W, qc=qc, spec=spec,
+                                           max_iterations=T,
+                                           dtype=jnp.float32, batch_tile=bt)
+        np.testing.assert_array_equal(np.asarray(kt.bits), kbits,
+                                      err_msg=f"f32 bits, tile {bt}")
+        np.testing.assert_array_equal(np.asarray(kt.success), ksucc,
+                                      err_msg=f"f32 success, tile {bt}")
+        np.testing.assert_allclose(np.asarray(kt.posterior), traj_gpu[-1],
+                                   rtol=POST_RTOL, atol=POST_ATOL,
+                                   err_msg=f"f32 posterior, tile {bt}")
+        kbt = qc_fused_decode_batch_layered(llr, W, qc=qc, spec=spec,
+                                            max_iterations=T,
+                                            dtype=jnp.bfloat16, lean=True,
+                                            batch_tile=bt)
+        np.testing.assert_array_equal(np.asarray(kbt.bits),
+                                      np.asarray(kb.bits),
+                                      err_msg=f"bf16 bits, tile {bt}")
+        np.testing.assert_array_equal(np.asarray(kbt.success),
+                                      np.asarray(kb.success),
+                                      err_msg=f"bf16 success, tile {bt}")
+
     fl = qc_fused_decode_batch(llr[:FLOOD_FRAMES], W, qc=qc, spec=spec,
                                max_iterations=T, dtype=jnp.float32)
     thr = np.asarray(spec.thresholds, np.float64)
@@ -160,6 +193,8 @@ def phase_parity(code, dec):
           f"{surv_t1:.1%} unconverged at t1=3, {int(ksucc.sum())} decoded; "
           f"posterior rtol={POST_RTOL} atol={POST_ATOL}); bf16 bit "
           f"agreement {agree:.6f} >= {BF16_BIT_AGREEMENT}, same success set; "
+          f"same f32 and bf16 results at {tiles[0]} and {tiles[1]} frames "
+          f"per program; "
           f"flooding kernel f32 bits == oracle on {FLOOD_FRAMES} frames; "
           f"first kernel call {t_kernel:.1f} s", flush=True)
 
@@ -290,9 +325,12 @@ def phase_four_cards(code, dec):
     _progress(f"phase 5: one-card stats equal, {time.time() - t0:.1f} s")
 
     # The data-parallel comparison trains on a 3x12 protograph at lift 256
-    # with the iteration loop scanned: compiling the STE step for the
-    # bench's 185 blocks took over 2 minutes per program on the H100, and
-    # sharding the batch does not depend on the code's size.
+    # with the iteration loop scanned. At the bench's 5x37 base the STE
+    # step compiles for minutes on one H100 (phase 4: three steps in
+    # 192.4 s, compile included; a data-parallel step had not compiled
+    # after 130 s), and this phase compiles two such programs. Sharding
+    # the batch does not depend on the code's size; the decode above runs
+    # at the bench code and batch.
     key = jax.random.PRNGKey(SEED)
     dp_loss, _, dp_g = _trainer(mesh, DP_BASE, unroll=False).train_epoch(
         key, batches_per_epoch=1)
@@ -334,7 +372,7 @@ def main(argv=None) -> int:
     enable_compilation_cache()
     for line in card_lines():
         print(f"card: {line}", flush=True)
-    code, dec, two_ck = bench.build("kernel")
+    code, dec, two_ck = bench.build()
     if args.four_cards:
         phase_four_cards(code, dec)
     else:

@@ -13,9 +13,9 @@ posterior (or int8 bits) and a success flag go out.
   order; nothing carries from one to another.
 - The scratch is an extra, discarded output holding one frame's state
   per program, reused for every frame of the program. One bench frame is
-  113,664 B in bf16 (layered: 185x256 c2v + 37x256 column sums), so
-  :func:`auto_batch_tile` sizes the grid to keep all programs' scratch
-  within an L2 budget.
+  113,664 B in bf16 (layered: 185x256 c2v + 37x256 column sums).
+  :func:`auto_batch_tile` sizes the grid for occupancy, as measured on an
+  H100 at the bench shape; the grid's scratch is far larger than L2.
 - A base row (a layer) is processed as ``[Dp, Lc]`` tiles: the row's
   blocks on the first axis, padded to a power of two and masked, and
   ``Lc`` lanes of the lift on the second. Circulant shifts are indexed
@@ -50,14 +50,18 @@ from ldpc_tpu.decode.qc_engine import QCGraph
 from ldpc_tpu.quantizer import QDQ_SIGN_TINY, power_qdq, uniform_qdq
 
 __all__ = ["qc_fused_decode_batch", "qc_fused_decode_batch_layered",
-           "auto_batch_tile", "state_bytes"]
+           "auto_batch_tile"]
 
-# Scratch the whole grid may keep resident: H100 has 50 MB of L2, part
-# of which the streaming LLR reads and output writes need.
-_L2_BUDGET = 32 * 2 ** 20
-# Elements of one [Dp, Lc] layer tile; with 4 warps that is 32 values
-# per thread for each live tile, which keeps the CN update in registers.
-_TILE_ELEMS = 4096
+# Grid and tile sizes, measured on an H100 (80GB HBM3, 400 W) at the bench
+# shape: 32768 frames, layered T=3, bf16, lean. By frames per program
+# (2048-element tiles), 8 (4096 programs) took 44.6 ms, 32 (1024) 46.4 ms
+# and 112 (293) 59.3 ms: more programs keep the SMs fuller, though the
+# scratch of 4096 programs (~465 MB) is far past L2. By elements per
+# [Dp, Lc] layer tile (4 warps, 293 programs), 2048 took 59.3 ms, 1024
+# 70.6 and 4096 66.4.
+_FRAMES_PER_PROGRAM = 8
+_MIN_PROGRAMS = 4096
+_TILE_ELEMS = 2048
 _NUM_WARPS = 4
 _INF = float("inf")
 
@@ -66,21 +70,25 @@ def _pow2(x: int) -> int:
     return 1 << max(0, int(x) - 1).bit_length()
 
 
-def state_bytes(qc: QCGraph, dtype=jnp.bfloat16, layered: bool = True) -> int:
-    """Per-frame scratch: c2v (or v2c) of every block, plus the column
-    sums for the layered schedule."""
-    words = qc.num_blocks * qc.lift + (qc.n if layered else 0)
-    return words * jnp.dtype(dtype).itemsize
+def auto_batch_tile(batch: int) -> int:
+    """Frames per grid program: up to :data:`_FRAMES_PER_PROGRAM`, fewer
+    when that would leave fewer than :data:`_MIN_PROGRAMS` programs (a
+    small batch, such as a 128-frame survivor stage, gets one frame per
+    program)."""
+    return max(1, min(_FRAMES_PER_PROGRAM, batch // _MIN_PROGRAMS))
 
 
-def auto_batch_tile(qc: QCGraph, batch: int, *, dtype=jnp.bfloat16,
-                    layered: bool = True) -> int:
-    """Frames per program such that the grid's scratch fits the L2
-    budget; a batch smaller than that budget's program count gets one
-    frame per program."""
-    programs = max(1, min(batch, _L2_BUDGET // state_bytes(qc, dtype,
-                                                           layered)))
-    return -(-batch // programs)
+def _check_int32(B: int, n: int, G: int, state_words: int) -> None:
+    """The kernels address their flat buffers with int32 offsets: the
+    [B, n] LLRs and outputs, and the grid's scratch of ``G`` programs of
+    ``state_words`` each (the layered column sums, ``G * n`` words, are
+    smaller). Refuse a shape whose offsets would wrap."""
+    for what, words in (("frames x bits", B * n),
+                        ("programs x state words", G * state_words)):
+        if words >= 2 ** 31:
+            raise ValueError(
+                f"{what} = {words} exceeds int32 indexing; decode in "
+                "smaller waves or with a larger batch_tile")
 
 
 def _qdq_mode(qparams, levels: int, closed: bool = False) -> str:
@@ -401,15 +409,12 @@ def _decode(llr, weights, *, qc, spec, max_iterations, dtype, batch_tile,
             "qc_options={'fused': True, 'interpret': True}")
     T = max_iterations
     B, n = llr.shape
-    if B * n >= 2 ** 31:
-        raise ValueError(f"batch of {B} frames x {n} bits exceeds int32 "
-                         "indexing; decode it in smaller waves")
-    bt = (auto_batch_tile(qc, B, dtype=dtype, layered=layered)
-          if batch_tile is None else int(batch_tile))
+    bt = auto_batch_tile(B) if batch_tile is None else int(batch_tile)
     if bt < 1:
         raise ValueError(f"batch_tile must be >= 1 or None, got {bt}")
     G = -(-B // bt)
     NB = qc.num_blocks
+    _check_int32(B, n, G, NB * qc.lift)
 
     def flat(a, w):
         return (jnp.asarray(a, jnp.float32).reshape(-1) if a is not None

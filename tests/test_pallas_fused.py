@@ -109,7 +109,7 @@ def test_fused_pads_bad_tile_and_rejects_vmem():
         qc_fused_decode_batch(llr, dec.weights, qc=qc, spec=dec.spec,
                               max_iterations=T, batch_tile=0,
                               interpret=True)
-    assert auto_batch_tile(qc, 8, dtype=jnp.float32, layered=False) == 1
+    assert auto_batch_tile(8) == 1
     small = qc_fused_decode_batch(llr[:8], dec.weights, qc=qc,
                                   spec=dec.spec, max_iterations=T,
                                   batch_tile=None, interpret=True)
@@ -211,31 +211,55 @@ def test_decoder_layered_fused_option():
 
 
 def test_max_batch_tile_accounting():
-    """The auto tile keeps the whole grid's scratch within the L2 budget:
-    one bench frame is 113,664 B of layered bf16 state (185x256 c2v +
-    37x256 column sums), so B=32768 runs on ~295 programs; the lift-360
-    code's state is counted at its true lift, not the padded lanes."""
-    from ldpc_tpu.codes import load_protograph
-    from ldpc_tpu.decode.pallas_fused import _L2_BUDGET, state_bytes
+    """The auto tile gives a large batch 8 frames per program (the bench's
+    32768 frames run on 4096 programs), keeps at least 4096 programs where
+    the batch allows, and gives a small batch (a 128-frame survivor
+    stage) one frame per program; every frame lands in one program."""
+    from ldpc_tpu.decode.pallas_fused import (_FRAMES_PER_PROGRAM,
+                                              _MIN_PROGRAMS)
+
+    assert auto_batch_tile(32768) == 8
+    assert auto_batch_tile(65536) == 8
+    assert auto_batch_tile(16384) == 4
+    assert auto_batch_tile(4095) == 1
+    assert auto_batch_tile(128) == 1
+    for B in (1, 37, 4096, 20000, 32768, 100000):
+        bt = auto_batch_tile(B)
+        programs = -(-B // bt)
+        assert 1 <= bt <= _FRAMES_PER_PROGRAM
+        assert programs * bt >= B > (programs - 1) * bt
+        assert programs >= min(B, _MIN_PROGRAMS)
+
+
+@pytest.mark.parametrize("frames,tile,fits", [
+    (45_343, 1, True),     # 45,343 programs x 47,360 state words < 2**31
+    (45_344, 1, False),    # one program more wraps the scratch offsets
+    (226_719, 8, True),    # 226,719 frames x 9,472 bits < 2**31
+    (226_720, 8, False),   # one frame more wraps the LLR offsets
+])
+def test_size_check_refuses_int32_overflow(frames, tile, fits):
+    """The kernels index flat buffers with int32: on the bench code
+    (5x37 base, lift 256) a shape whose LLR or scratch offsets would wrap
+    is refused while tracing, before anything is allocated."""
+    from ldpc_tpu.decode.pallas_fused import qc_fused_decode_batch_layered
 
     rng = np.random.default_rng(0)
-    bench_qc = build_qc_graph(rng.integers(0, 256, size=(5, 37)), 256)
-    assert state_bytes(bench_qc, jnp.bfloat16, layered=True) == 113_664
-    assert state_bytes(bench_qc, jnp.bfloat16, layered=False) == 94_720
-    for B in (32768, 4080, 128):
-        bt = auto_batch_tile(bench_qc, B, layered=True)
-        programs = -(-B // bt)
-        assert programs * bt >= B > (programs - 1) * bt
-        assert programs * 113_664 <= _L2_BUDGET
-    assert auto_batch_tile(bench_qc, 128, layered=True) == 1
-    assert auto_batch_tile(bench_qc, 32768, layered=True) > 1
+    base = rng.integers(0, 256, size=(5, 37))
+    code = ldpc_tpu.create_qc_code(base, lift=256, max_iterations=2)
+    qc = build_qc_graph(base, 256)
+    dec = ldpc_tpu.make_decoder(code, kind="ms", max_iterations=2, qc=qc)
 
-    b2, lift2 = load_protograph("codes/dvbs2_like_16200_7200.proto")
-    qc2 = build_qc_graph(b2, lift2)
-    assert state_bytes(qc2, jnp.float32, layered=True) == \
-        4 * (qc2.num_blocks * 360 + 16200)
-    bt2 = auto_batch_tile(qc2, 4096, dtype=jnp.float32, layered=True)
-    assert -(-4096 // bt2) * state_bytes(qc2, jnp.float32) <= _L2_BUDGET
+    def run(llr):
+        return qc_fused_decode_batch_layered(
+            llr, dec.weights, qc=qc, spec=dec.spec, max_iterations=2,
+            batch_tile=tile, interpret=True, lean=True).success
+
+    shape = jax.ShapeDtypeStruct((frames, code.n), jnp.float32)
+    if fits:
+        assert jax.eval_shape(run, shape).shape == (frames,)
+    else:
+        with pytest.raises(ValueError, match="int32"):
+            jax.eval_shape(run, shape)
 
 
 def test_fused_auto_batch_tile_interpret():
@@ -485,10 +509,14 @@ def test_kernel_refuses_cpu_without_interpret(layered):
 
 
 @pytest.mark.gpu
-def test_compiled_kernels_match_engine_on_gpu(gpu_device):
+@pytest.mark.parametrize("batch_tile", [None, 8, 24])
+def test_compiled_kernels_match_engine_on_gpu(gpu_device, batch_tile):
     """The kernels as compiled for the card (no interpret mode) against
     the XLA engines: f32 hard outputs equal, posteriors to float
-    tolerance (the two compilers contract mul+add differently)."""
+    tolerance (the two compilers contract mul+add differently). Tiles of
+    one frame (auto, at 64 frames), of 8 frames and a tile that does not
+    divide the batch: programs that decode several frames reuse their
+    scratch, behind barriers that only compiled code has."""
     from ldpc_tpu.decode.pallas_fused import qc_fused_decode_batch_layered
     from ldpc_tpu.decode.qc_engine import qc_decode_batch_layered
 
@@ -503,15 +531,19 @@ def test_compiled_kernels_match_engine_on_gpu(gpu_device):
                                       spec=dec.spec, max_iterations=T,
                                       return_trajectory=True)
     out = qc_fused_decode_batch(llr, dec.weights, qc=qc, spec=dec.spec,
-                                max_iterations=T, dtype=jnp.float32)
+                                max_iterations=T, dtype=jnp.float32,
+                                batch_tile=batch_tile)
     np.testing.assert_array_equal(np.asarray(out.bits), np.asarray(ref.bits))
     np.testing.assert_array_equal(np.asarray(out.success),
                                   np.asarray(ref.success))
     outl = qc_fused_decode_batch_layered(llr, dec.weights, qc=qc,
                                          spec=dec.spec, max_iterations=T,
-                                         dtype=jnp.float32)
+                                         dtype=jnp.float32,
+                                         batch_tile=batch_tile)
     last = np.asarray(lay.posteriors_all[-1])
     np.testing.assert_array_equal(np.asarray(outl.bits),
                                   (last < 0).astype(np.int32))
+    ok = ~((code.H.astype(np.int64) @ (last < 0).T) % 2).any(axis=0)
+    np.testing.assert_array_equal(np.asarray(outl.success), ok)
     np.testing.assert_allclose(np.asarray(outl.posterior), last,
                                rtol=1e-5, atol=1e-4)

@@ -367,8 +367,8 @@ def test_punctured_simulation():
 
 def test_two_checkpoint_inherits_parent_batch_tile():
     """The compaction wave must honor the parent decoder's own
-    batch_tile — in particular batch_tile=None (auto-size the kernel's
-    grid from the L2 budget) — over the config's stage-1 tile, and must
+    batch_tile — in particular batch_tile=None (the kernel sizes its own
+    grid, ``auto_batch_tile``) — over the config's stage-1 tile, and must
     add no ``interpret`` of its own: that choice is the caller's."""
     from ldpc_tpu.decode.qc_engine import build_qc_graph
     from ldpc_tpu.sim.montecarlo import _fuse_opts, _make_compacting_wave_fn
